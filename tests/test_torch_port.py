@@ -1,0 +1,106 @@
+"""The port as a package: what it imports, and what it does on a CUDA card.
+
+The ``cuda`` tests need an NVIDIA GPU and skip without one; on the card
+they build the event kernel from ``goworld_tpu_torch/ops/csrc`` and hold it
+against its plain version.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import lattice_cells
+from goworld_tpu_torch.ops import event_kernel as ek
+from goworld_tpu_torch.ops import neighbor as tn
+
+ROOT = Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "goworld_tpu_torch"
+
+
+def port_modules():
+    return sorted(
+        ".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for f in PACKAGE.rglob("*.py")
+    )
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = port_modules()
+    assert "goworld_tpu_torch.ops.neighbor" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib', 'goworld_tpu.')) "
+        "or m == 'goworld_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_port_sources_name_no_jax_package_import():
+    for f in PACKAGE.rglob("*.py"):
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "goworld_tpu"), (f, name)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the event kernel runs only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [False, True])
+def test_cuda_kernel_matches_plain_version(cuda, dual):
+    cells = torch.tensor(lattice_cells(2, 6, 5, seed=1), device=cuda)
+    before = ek.launches[ek.FORMS[int(dual)]]
+    got = ek.event_mask(cells, dual)
+    assert ek.launches[ek.FORMS[int(dual)]] == before + 1
+    want = ek.event_mask_reference(cells, dual)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    skipped = ek.event_mask(cells, dual, skip=torch.ones(
+        (), dtype=torch.bool, device=cuda))
+    assert skipped.shape == want.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["reference", "kernel"])
+def test_cuda_engine_matches_cpu_engine(cuda, backend):
+    p = tn.NeighborParams(capacity=256, cell_size=100.0, grid_x=8, grid_z=8,
+                          space_slots=2, cell_capacity=64, max_events=64)
+    engines = [tn.NeighborEngine(p, backend=backend, device=d)
+               for d in ("cpu", cuda)]
+    for e in engines:
+        e.reset()
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(0, 800, (256, 2)).astype(np.float32)
+    active = rng.random(256) < 0.9
+    space = rng.integers(0, 3, 256).astype(np.int32)
+    radius = np.full(256, 60.0, np.float32)
+    for k in range(4):
+        if k == 2:
+            pos[:9] = rng.uniform(0, 800, (9, 2))
+        outs = [e.step(pos, active, space, radius) for e in engines]
+        assert np.array_equal(outs[0][0], outs[1][0])
+        assert np.array_equal(outs[0][1], outs[1][1])
+        assert outs[0][2] == outs[1][2]
+        pos = np.clip(pos + rng.normal(0, 3, pos.shape), 0, 800)
+        pos = pos.astype(np.float32)
