@@ -11,14 +11,15 @@ toolkit. It
    and times both;
 3. drives the AOI neighbor engine's main path at the headline size of
    bench.py's accelerator branch (102,400 entities, 44x44 cells of 300,
-   radius 100): the enter storm, 40 pipelined steady ticks, 10 synchronous
+   radius 100): the enter storm, 40 pipelined steady ticks, 200 synchronous
    ones and a slow tick (1% despawned, 1% teleported), with the kernel
    launch counts zeroed just before and read just after;
 4. holds the storm, two steady ticks and the slow tick against the port's
    reference engine on the card, and a 1,024-entity sample's incremental
    interest sets against brute force;
-5. repeats the drive and the checks for a few ticks of the 32-space shape
-   (bench.py ``multispace_32``: 32 space slots, 32x32 cells of 400).
+5. repeats the kernel checks, the drive and the engine checks for a few
+   ticks of the 32-space shape (bench.py ``multispace_32``: 32 space slots,
+   32x32 cells of 400).
 
 It prints bench.py's metrics, a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -37,10 +38,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth and
-# FP32 outside the tensor cores.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bandwidth, and
+# FP32 outside the tensor cores, 67 TFLOP/s with an FMA counted as two
+# operations. The kernel is built with --fmad=false and issues separate
+# FP32 instructions of one operation each, so its peak is half that rate.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12 / 2
 # FP32 operations per pair and epoch in the event kernel: 2 subtractions,
 # 2 multiplications, 1 addition, 2 comparisons.
 OPS_PER_PAIR_EPOCH = 7
@@ -51,7 +54,7 @@ HEADLINE = dict(capacity=102400, cell_size=300.0, grid_x=44, grid_z=44,
 MULTISPACE = dict(capacity=102400, cell_size=400.0, grid_x=32, grid_z=32,
                   space_slots=32, cell_capacity=128, max_events=131072)
 PIPELINED_TICKS = 40
-SYNC_TICKS = 10
+SYNC_TICKS = 200
 
 SOURCE = "goworld_tpu_torch/ops/csrc/event_kernel.cu"
 REPLACES = "goworld_tpu/ops/neighbor.py:496"
@@ -131,13 +134,13 @@ def lattice_cells(slots, rows, cols, seed):
     return np.ascontiguousarray(cells[:, zi][:, :, xi])
 
 
-def steady_cells(tn, p, pos, ppos, device):
+def steady_cells(tn, p, pos, ppos, space, device):
     """The current grid's cells of a steady tick, built by the engine's own
     binning, table and scatter (as _step_pallas builds them)."""
     n = p.capacity
     pos_t = torch.tensor(pos, device=device)
     ppos_t = torch.tensor(ppos, device=device)
-    space = torch.zeros(n, dtype=torch.int32, device=device)
+    space = torch.tensor(space, device=device)
     radius = torch.full((n,), 100.0, device=device)
     active = torch.ones(n, dtype=torch.bool, device=device)
     cx, cz, sm = tn._bins(p, pos_t, space)
@@ -148,25 +151,30 @@ def steady_cells(tn, p, pos, ppos, device):
     return tn._scatter_feats(p, dst, order, feats_a, feats_b)
 
 
-def kernel_checks(tn, ek, p, pos, ppos, device):
+def hold_kernel(ek, cells, dual) -> int:
+    """One form's words against its plain version on the same cells; the
+    largest difference of a word, which must be 0."""
+    got = ek.event_mask(cells, dual)
+    want = ek.event_mask_reference(cells, dual)
+    err = int((got - want).abs().max())  # words are 0..65535
+    if err:
+        raise AssertionError(f"{ek.FORMS[int(dual)]}: kernel words differ "
+                             f"from the plain version at "
+                             f"{tuple(cells.shape)}")
+    return err
+
+
+def kernel_checks(tn, ek, p, pos, ppos, space, device):
     """Each form against its plain version, at the headline cells and at a
     small lattice grid; times at the headline cells."""
-    head = steady_cells(tn, p, pos, ppos, device)
+    head = steady_cells(tn, p, pos, ppos, space, device)
     small = torch.tensor(lattice_cells(2, 6, 5, seed=1), device=device)
     n_cells = head.shape[0] * (head.shape[1] - 2) * (head.shape[2] - 2)
     skip = torch.ones((), dtype=torch.bool, device=device)
     rows = []
     for dual in (False, True):
         name = ek.FORMS[int(dual)]
-        err = 0
-        for cells in (small, head):
-            got = ek.event_mask(cells, dual)
-            want = ek.event_mask_reference(cells, dual)
-            torch.cuda.synchronize()
-            err = max(err, int((got.long() - want.long()).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name}: kernel words differ "
-                                     f"from the plain version")
+        err = max(hold_kernel(ek, cells, dual) for cells in (small, head))
         out = ek.event_mask(head, dual)
         ms = cuda_ms(lambda: ek.event_mask(head, dual))
         plain_ms = cuda_ms(lambda: ek.event_mask_reference(head, dual), 3)
@@ -254,6 +262,18 @@ def hold_against_reference(tn, p, device, compared, what):
               flush=True)
 
 
+def walk(pos, vel, world):
+    """One tick of the walk, in place. Entities reflect off the world's
+    edges: bench.py clips them there, which over a few hundred ticks piles
+    them up on the edge cells past a cell's capacity."""
+    pos += vel
+    under = pos < 0
+    over = pos > world
+    pos[under] = -pos[under]
+    pos[over] = 2 * world - pos[over]
+    vel[under | over] *= -1
+
+
 def slow_tick_inputs(rng, pos, active, world):
     """1% despawned, 1% teleported across the map."""
     n = len(pos)
@@ -276,7 +296,7 @@ def drive_headline(tn, ek, device):
     space = np.zeros(n, np.int32)
     radius = np.full(n, 100.0, np.float32)
     vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
-    kernels = kernel_checks(tn, ek, p, pos + vel, pos, device)
+    kernels = kernel_checks(tn, ek, p, pos + vel, pos, space, device)
 
     eng = tn.NeighborEngine(p)
     if eng.backend != "kernel" or eng.device != device:
@@ -296,55 +316,56 @@ def drive_headline(tn, ek, device):
     fasts.append(pend.fast)
     compared.append(("storm", None, (pos.copy(), active, space, radius),
                      storm))
-    checked_s = []  # the smoke's own checks, kept out of the throughput
 
     def consume(out, label):
-        t0 = time.perf_counter()
         check_pairs(out[0], n, f"{label} enters")
         check_pairs(out[1], n, f"{label} leaves")
         if out[2]:
             raise AssertionError(f"{label}: {out[2]} entities dropped")
         sample.apply(out[0], out[1])
-        checked_s.append(time.perf_counter() - t0)
 
     consume(storm, "storm")
 
-    # Pipelined steady ticks: dispatch t+1, then collect t.
+    # Pipelined steady ticks: dispatch t+1, then collect t. The timed
+    # window holds only what a game does (move, step_async, collect); the
+    # checks run over the kept outputs after it.
     steps = PIPELINED_TICKS
     k_cmp = steps // 2  # a steady tick compared with the reference engine
-    events = paged = 0
-    collect_s = []
+    outs = []
+    dispatch_s, collect_s = [], []
     pending = None
     t_all0 = time.perf_counter()
     for k in range(1, steps + 2):
         nxt = None
         if k <= steps:
             prev = pos.copy() if k == k_cmp else None
-            pos += vel
-            np.clip(pos, 0.0, world, out=pos)
+            walk(pos, vel, world)
+            t0 = time.perf_counter()
             nxt = eng.step_async(pos, active, space, radius, meta_dirty=False)
+            dispatch_s.append(time.perf_counter() - t0)
             fasts.append(nxt.fast)
             if k == k_cmp:
                 cmp_epochs = ((prev, active, space, radius),
                               (pos.copy(), active, space, radius))
         if pending is not None:
             t0 = time.perf_counter()
-            out = pending.collect()
+            outs.append(pending.collect())
             collect_s.append(time.perf_counter() - t0)
-            events += len(out[0]) + len(out[1])
-            paged += len(out[0]) > p.max_events or len(out[1]) > p.max_events
-            consume(out, f"tick {k - 1}")
-            if k - 1 == k_cmp:
-                compared.append((f"steady tick {k_cmp}", *cmp_epochs, out))
         pending = nxt
-    t_all = time.perf_counter() - t_all0 - sum(checked_s[1:])
+    t_all = time.perf_counter() - t_all0
+    events = paged = 0
+    for k, out in enumerate(outs, 1):
+        events += len(out[0]) + len(out[1])
+        paged += len(out[0]) > p.max_events or len(out[1]) > p.max_events
+        consume(out, f"tick {k}")
+    compared.append((f"steady tick {k_cmp}", *cmp_epochs, outs[k_cmp - 1]))
+    del outs
 
     # Synchronous steady ticks: post-step drain latency.
     drain_s = []
     for j in range(SYNC_TICKS):
         prev = pos.copy()
-        pos += vel
-        np.clip(pos, 0.0, world, out=pos)
+        walk(pos, vel, world)
         pend = eng.step_async(pos, active, space, radius, meta_dirty=False)
         fasts.append(pend.fast)
         pend.wait_device()
@@ -389,12 +410,14 @@ def drive_headline(tn, ek, device):
         "paged_ticks": int(paged),
         "storm_events": len(storm[0]),
         "storm_ms": storm_ms,
+        "dispatch_p50_ms": pct(dispatch_s, 50),
+        "dispatch_p99_ms": pct(dispatch_s, 99),
         "collect_p50_ms": pct(collect_s, 50),
         "collect_p99_ms": pct(collect_s, 99),
         "post_step_drain_p50_ms": pct(drain_s, 50),
         "post_step_drain_p99_ms": pct(drain_s, 99),
+        "post_step_drain_samples": len(drain_s),
         "slow_tick_ms": slow_ms,
-        "smoke_checks_ms_per_tick": float(np.mean(checked_s[1:]) * 1e3),
         "ticks": len(fast),
         "slow_ticks": fast.count(False),
         "launches": launches,
@@ -414,6 +437,19 @@ def drive_multispace(tn, ek, device):
     space = (np.arange(n) % p.space_slots).astype(np.int32)
     radius = np.full(n, 100.0, np.float32)
     vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+
+    # Both forms against their plain version at this path's cells.
+    cells = steady_cells(tn, p, pos + vel, pos, space, device)
+    kernel_err, kernel_ms = {}, {}
+    for dual in (False, True):
+        name = ek.FORMS[int(dual)]
+        kernel_err[name] = hold_kernel(ek, cells, dual)
+        kernel_ms[name] = cuda_ms(lambda: ek.event_mask(cells, dual), 5)
+        print(f"kernel {name}: bit-identical at {tuple(cells.shape)}; "
+              f"{kernel_ms[name]:.4f} ms", flush=True)
+    del cells
+    torch.cuda.empty_cache()
+
     eng = tn.NeighborEngine(p)
     eng.reset()
     sample = SampleSets(n, seed=2)
@@ -454,6 +490,8 @@ def drive_multispace(tn, ek, device):
         "events": [len(c[3][0]) + len(c[3][1]) for c in compared],
         "fast": fast,
         "launches": launches,
+        "kernel_max_abs_err": kernel_err,
+        "kernel_ms": kernel_ms,
     }
 
 
@@ -472,18 +510,19 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    logs = _build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {_build.sources()}",
-          flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    log = _build.build("event_kernel")
+    print(f"build: {time.perf_counter() - t0:.1f} s for {SOURCE}", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  {line.strip()}")
 
     headline, kernels = drive_headline(tn, ek, device)
     print(json.dumps({"headline": headline}), flush=True)
     multispace = drive_multispace(tn, ek, device)
     print(json.dumps({"multispace_32": multispace}), flush=True)
+    for row in kernels:  # the kernel checks of both paths
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 multispace["kernel_max_abs_err"][row["name"]])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

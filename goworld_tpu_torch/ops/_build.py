@@ -35,11 +35,6 @@ NVCC_FLAGS = (
 )
 
 
-def sources() -> list[str]:
-    """Names of the kernel sources, ``csrc/<name>.cu``."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
-
-
 def nvcc_path() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -63,42 +58,27 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: list[str] | None = None) -> dict[str, str]:
-    """Compile every library of ``names`` (default: all sources) that is not
-    built yet, one ``nvcc`` per source, all started together. Returns the
-    compiler output per library built; raises if any build fails."""
-    names = sources() if names is None else names
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
-        return {}
-    nvcc = nvcc_path()
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
+    compiler's output ("" when the library was built before); raises with
+    that output if ``nvcc`` fails."""
+    target = library_path(name)
+    if target.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in todo:
-        target = library_path(name)
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        procs.append((name, proc, tmp, target))
-    logs: dict[str, str] = {}
-    failed: list[str] = []
-    for name, proc, tmp, target in procs:
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode == 0:
-            os.replace(tmp, target)
-        else:
-            failed.append(name)
-    if failed:
-        report = "\n".join(f"--- {n} ---\n{logs[n]}" for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{report}")
-    return logs
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+    os.replace(tmp, target)
+    return proc.stdout
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The built library ``csrc/<name>.cu``, building it first if needed."""
-    build([name])
+    build(name)
     return ctypes.CDLL(str(library_path(name)))

@@ -27,8 +27,9 @@
 // read by 9 CTAs, mostly from L2; device memory sees the input once) and
 // writes 36,864 B (dual) or 18,432 B (single), and it evaluates
 // 128 x 1152 pairs x 2 epochs x 7 FP32 operations. At the 44x44-cell grid
-// that is ~151 MB (45 us at 3.35 TB/s) against ~4.0 G FP32 operations
-// (60 us at 67 TFLOP/s): the arithmetic bounds it, closely followed by bytes.
+// that is ~151 MB (45 us at 3.35 TB/s) against ~4.0 G FP32 instructions
+// (120 us at 33.5 T/s, the 67 TFLOP/s peak with an FMA counted as two
+// operations; this kernel issues no FMA): the arithmetic bounds it.
 // The design keeps the pair arithmetic lean: the halo is staged once in
 // shared memory as [candidate][8 features], so a candidate is two broadcast
 // 16-byte loads shared by the whole warp; the query's features stay in
