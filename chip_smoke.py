@@ -19,12 +19,19 @@ toolkit. It
    interest sets against brute force;
 5. repeats the kernel checks, the drive and the engine checks for a few
    ticks of the 32-space shape (bench.py ``multispace_32``: 32 space slots,
-   32x32 cells of 400).
+   32x32 cells of 400);
+6. holds the boids kernel against its plain version at the cells of each
+   grid of bench.py's supercell sweep and at a small dense grid across the
+   torus seam, then drives the boids step as ``bench_boids_tuned`` does
+   (51,200 agents, radius 100, a 6,400-wide world: 15 steps at each cell
+   size, the drop-free winner at 60), holds three of the winner's steps
+   against the reference backend on the card and a 1,024-agent sample
+   against the float64 oracle.
 
-It prints bench.py's metrics, a ``{"kernels": [...]}`` line, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the exit code is not 0. Without a CUDA device it exits with 1 and
-prints no result.
+The kernels are built first, all at once. It prints bench.py's metrics, a
+``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
+is not 0. Without a CUDA device it exits with 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -56,9 +64,43 @@ MULTISPACE = dict(capacity=102400, cell_size=400.0, grid_x=32, grid_z=32,
 PIPELINED_TICKS = 40
 SYNC_TICKS = 200
 
-SOURCE = "goworld_tpu_torch/ops/csrc/event_kernel.cu"
-REPLACES = "goworld_tpu/ops/neighbor.py:496"
+# Each kernel's source, and the TPU kernel it replaces.
+KERNELS = {
+    "event_kernel": ("goworld_tpu_torch/ops/csrc/event_kernel.cu",
+                     "goworld_tpu/ops/neighbor.py:496"),
+    "boids_kernel": ("goworld_tpu_torch/ops/csrc/boids_kernel.cu",
+                     "goworld_tpu/ops/boids.py:140"),
+}
 SAMPLE = 1024
+
+# bench.py's boids_50k (bench_boids / bench_boids_tuned): the agents, the
+# interaction radius, the world's side, the supercell sweep and the steps.
+BOIDS_N = 51200
+BOIDS_RADIUS = 100.0
+BOIDS_WORLD = 6400.0
+BOIDS_CELL_SWEEP = (100.0, 160.0, 200.0, 320.0)
+BOIDS_SWEEP_STEPS = 15
+BOIDS_STEPS = 60
+# Tolerances: the kernel and its plain version sum in another order, and the
+# accelerations are clamped to |a| <= 2; positions up to 6,400 have an f32
+# spacing of 4.9e-4; the oracle's is tests/test_boids.py's.
+BOIDS_ATOL = 1e-4
+BOIDS_POS_ATOL = 1e-3
+BOIDS_ORACLE_TOL = 2e-3
+# FP32 operations of the boids kernel, from csrc/boids_kernel.cu, with an
+# IEEE division counted as one. Per pair of an occupied query and another
+# occupied candidate: 2 subtractions, then for the minimal image 2 divisions,
+# 2 rints, 2 multiplications and 2 subtractions, then 2 multiplications and
+# an addition for d2 and its comparison with r2. Per pair in range: 5
+# additions (the count and four sums) and the comparison with sep_r2. Per
+# close pair: 3 additions, a division and 2 multiplications. Per occupied
+# query, after the loop: 33.
+OPS_PER_PAIR = 14
+OPS_PER_NEIGHBOR = 6
+OPS_PER_CLOSE = 6
+OPS_PER_QUERY = 33
+# Feature rows of a cell that the boids kernel loads (x, z, vx, vz, valid).
+BOIDS_ROWS_READ = 5
 
 
 def card_line() -> str:
@@ -184,7 +226,8 @@ def kernel_checks(tn, ek, p, pos, ppos, space, device):
         ops_ms = ops / FP32_OPS_PER_S * 1e3
         row = {
             "name": name, "form": "dual" if dual else "single",
-            "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+            "route": "cuda", "source": KERNELS["event_kernel"][0],
+            "replaces": KERNELS["event_kernel"][1],
             "launches": None, "bit_identical": True, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -495,12 +538,290 @@ def drive_multispace(tn, ek, device):
     }
 
 
+def boids_params(tb, cell):
+    """bench_boids's configuration at one supercell size: the grid keeps the
+    world's side within half a cell."""
+    grid = max(4, int(round(BOIDS_WORLD / cell)))
+    return tb.BoidsParams(capacity=BOIDS_N, cell_size=cell, grid_x=grid,
+                          grid_z=grid, radius=BOIDS_RADIUS)
+
+
+def boids_world(p, seed=0):
+    """bench_boids's start: uniform positions, velocities N(0, 3), all
+    active."""
+    rng = np.random.default_rng(seed)
+    n = p.capacity
+    pos = rng.uniform(0, [p.world_x, p.world_z], (n, 2)).astype(np.float32)
+    vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+    return pos, vel, np.ones(n, bool)
+
+
+def seam_world(p, seed=2):
+    """A dense cluster straddling the torus seam at the origin, 400 of the
+    agents active (tests/test_boids.py's dense-wrap case)."""
+    rng = np.random.default_rng(seed)
+    n = p.capacity
+    pos = np.mod(rng.normal(0, 60.0, (n, 2)), p.world_x).astype(np.float32)
+    vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+    return pos, vel, np.arange(n) < 400
+
+
+def boids_cells(tb, p, world, device):
+    pos, vel, active = (torch.tensor(a, device=device) for a in world)
+    return tb._build_cells(p, pos, vel, active)[0]
+
+
+def boids_work(bk, p, cells):
+    """(bytes, FP32 operations) that these cells need: the five rows the
+    kernel reads (x, z, vx, vz, valid; the 3 spare rows are never loaded) of
+    every cell, halo ring included, read once, and the accelerations written
+    once; the kernel's operations on the pairs of occupied lanes, counted
+    from the data."""
+    gz, gx = cells.shape[0] - 2, cells.shape[1] - 2
+    sep_r2 = bk.step_constants(p)[3]
+    pairs = neighbors = close = queries = 0
+    for start in range(0, gz * gx, 64):
+        idx = torch.arange(start, min(start + 64, gz * gx),
+                           device=cells.device)
+        q, cand, _, _, d2, nb = bk.halo_pairs(cells, idx, p)
+        q_ok = (q[:, 4] > 0).sum(1)
+        c_ok = (cand[:, 4] > 0).sum(1)
+        pairs += int((q_ok * c_ok - q_ok).sum())  # not the query itself
+        queries += int(q_ok.sum())
+        neighbors += int(nb.sum())
+        close += int((nb & (d2 < sep_r2)).sum())
+    ops = (OPS_PER_PAIR * pairs + OPS_PER_NEIGHBOR * neighbors
+           + OPS_PER_CLOSE * close + OPS_PER_QUERY * queries)
+    rows_read = BOIDS_ROWS_READ * (gz + 2) * (gx + 2) * 128 * 4
+    return rows_read + gz * gx * 2 * 128 * 4, ops
+
+
+def hold_boids(bk, p, cells, what) -> float:
+    """The kernel's accelerations against its plain version on the same
+    cells; the largest absolute difference."""
+    got = bk.boids_accel(cells, p)
+    want = bk.boids_accel_reference(cells, p)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"boids kernel {what}: non-finite output")
+    err = float((got - want).abs().max())
+    if err > BOIDS_ATOL:
+        raise AssertionError(f"boids kernel {what}: differs from the plain "
+                             f"version by {err} > {BOIDS_ATOL}")
+    return err
+
+
+def boids_kernel_checks(tb, bk, device):
+    """The kernel against its plain version at the start cells of every
+    sweep grid and at a small grid with a cluster across the seam; times and
+    bounds at each sweep grid, keyed by grid."""
+    small = tb.BoidsParams(capacity=512, cell_size=100.0, grid_x=8, grid_z=8)
+    seam_err = hold_boids(bk, small, boids_cells(tb, small, seam_world(small),
+                                                 device), "seam 8x8")
+    print(f"kernel boids: seam grid 8x8, max abs err {seam_err:.3g}",
+          flush=True)
+    by_grid = {}
+    for cell in BOIDS_CELL_SWEEP:
+        p = boids_params(tb, cell)
+        cells = boids_cells(tb, p, boids_world(p), device)
+        err = hold_boids(bk, p, cells, f"grid {p.grid_x}")
+        ms = cuda_ms(lambda: bk.boids_accel(cells, p))
+        plain_ms = cuda_ms(lambda: bk.boids_accel_reference(cells, p), 3)
+        bytes_moved, ops = boids_work(bk, p, cells)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        by_grid[p.grid_x] = {
+            "cell_size": cell, "max_abs_err": max(err, seam_err),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "bytes": bytes_moved, "fp32_ops": ops,
+        }
+        print(f"kernel boids: grid {p.grid_x} (cell {cell:g}), max abs err "
+              f"{err:.3g}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{by_grid[p.grid_x]['bound_ms']:.4f} ms "
+              f"({by_grid[p.grid_x]['bound_by']})", flush=True)
+        del cells
+    torch.cuda.empty_cache()
+    return by_grid
+
+
+def run_boids(tb, p, steps, device, keep=()):
+    """bench_boids at one configuration: a warm-up step, then ``steps``
+    chained steps timed on the host clock; the drop counts are read after
+    the timed loop. Returns (result, kept) where ``kept[k]`` holds step k's
+    inputs and outputs for each k in ``keep``."""
+    eng = tb.BoidsEngine(p)
+    if eng.backend != "kernel" or eng.device != device:
+        raise AssertionError("the default boids engine is not the CUDA "
+                             "kernel path")
+    pos, vel, active = boids_world(p)
+    active = torch.as_tensor(active, device=device)
+    pos, vel, _ = eng.step(pos, vel, active)
+    torch.cuda.synchronize()
+    drops, kept, dispatch = [], {}, []
+    t0 = time.perf_counter()
+    for k in range(steps):
+        inputs = (pos, vel, active)
+        t_step = time.perf_counter()
+        pos, vel, accel = eng.step(pos, vel, active)
+        dispatch.append(time.perf_counter() - t_step)
+        drops.append(eng.last_dropped)
+        if k in keep:
+            kept[k] = (inputs, (pos, vel, accel, eng.last_dropped))
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    dropped = int(torch.stack(drops).sum())
+    if not bool(torch.isfinite(pos).all() & torch.isfinite(vel).all()):
+        raise AssertionError(f"boids grid {p.grid_x}: non-finite state")
+    ticks_per_sec = steps / t_all
+    return {
+        "agents": p.capacity,
+        "cell_size": p.cell_size,
+        "grid": p.grid_x,
+        "steps": steps,
+        "ticks_per_sec": ticks_per_sec,
+        "boids_agent_updates_per_sec": ticks_per_sec * p.capacity,
+        "cell_overflow_dropped": dropped,
+        "dispatch_p50_ms": float(np.median(dispatch) * 1e3),
+    }, kept
+
+
+def hold_boids_steps(tb, p, kept, device):
+    """Each kept step again through the reference backend on the card, from
+    the same inputs (one step at a time: a free-running flock diverges)."""
+    ref = tb.BoidsEngine(p, backend="reference", device=device)
+    world = torch.tensor([p.world_x, p.world_z], dtype=torch.float64,
+                         device=device)
+    for k, (inputs, got) in sorted(kept.items()):
+        pos, vel, accel = ref.step(*inputs)
+        errs = {
+            "accel": float((got[2] - accel).abs().max()),
+            "vel": float((got[1] - vel).abs().max()),
+        }
+        d = (got[0].double() - pos.double()).abs()
+        errs["pos"] = float(torch.minimum(d, world - d).max())
+        if (errs["accel"] > BOIDS_ATOL or errs["vel"] > BOIDS_ATOL
+                or errs["pos"] > BOIDS_POS_ATOL):
+            raise AssertionError(f"boids step {k}: differs from the "
+                                 f"reference backend: {errs}")
+        if int(got[3]) != int(ref.last_dropped):
+            raise AssertionError(f"boids step {k}: dropped differs")
+        print(f"boids step {k}: equal to the reference backend within "
+              f"tolerance ({errs}), dropped {int(got[3])}", flush=True)
+
+
+def kept_agents(p, pos, active):
+    """The agents the grid keeps, by the engine's rule, from numpy: the
+    active ones less those past a cell's 128 lanes in index order. The rest
+    are dropped: zero steering, and invisible to their neighbors."""
+    cell = np.float32(p.cell_size)
+    cx = np.floor(pos[:, 0] / cell).astype(np.int64) % p.grid_x
+    cz = np.floor(pos[:, 1] / cell).astype(np.int64) % p.grid_z
+    key = np.where(active, cz * p.grid_x + cx, -1)
+    order = np.argsort(key, kind="stable")
+    sorted_key = key[order]
+    first = np.searchsorted(sorted_key, sorted_key, side="left")
+    kept = np.zeros(len(pos), bool)
+    kept[order] = (sorted_key >= 0) & (np.arange(len(pos)) - first < 128)
+    return kept
+
+
+def hold_boids_oracle(tb, p, inputs, out, what):
+    """A sample of agents' accelerations against the float64 oracle, which
+    sees only the agents the grid keeps (flocks condense past a cell's
+    lanes over a run); the drop count against the same rule."""
+    rows = np.sort(np.random.default_rng(3).choice(p.capacity, SAMPLE,
+                                                   replace=False))
+    pos, vel, active = (t.cpu().numpy() for t in inputs)
+    kept = kept_agents(p, pos, active)
+    if int(out[3]) != int((active & ~kept).sum()):
+        raise AssertionError(f"boids {what}: dropped {int(out[3])}, the "
+                             f"rule drops {int((active & ~kept).sum())}")
+    want = tb.reference_accel(p, pos, vel, kept, rows)
+    accel = out[2]
+    got = accel[torch.as_tensor(rows, device=accel.device)].cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=BOIDS_ORACLE_TOL,
+                               atol=BOIDS_ORACLE_TOL, err_msg=what)
+    print(f"boids oracle {what}: {SAMPLE} agents ({int((~kept[rows]).sum())}"
+          f" dropped) within {BOIDS_ORACLE_TOL} of the float64 oracle",
+          flush=True)
+
+
+def drive_boids(tb, bk, device):
+    """bench.py's bench_boids_tuned through the port's engine: the sweep at
+    BOIDS_SWEEP_STEPS, then the fastest drop-free configuration at
+    BOIDS_STEPS, the next one if that run drops agents. Launch counts are
+    zeroed just before and read just after."""
+    torch.cuda.synchronize()
+    bk.reset_launch_counts()
+    steps_run = 0
+    sweep, candidates = {}, []
+    for cell in BOIDS_CELL_SWEEP:
+        r, _ = run_boids(tb, boids_params(tb, cell), BOIDS_SWEEP_STEPS, device)
+        steps_run += 1 + BOIDS_SWEEP_STEPS
+        print(f"boids sweep: {json.dumps(r)}", flush=True)
+        sweep[f"cell_{int(cell)}"] = {
+            "updates_per_sec": r["boids_agent_updates_per_sec"],
+            "dropped": r["cell_overflow_dropped"],
+        }
+        if r["cell_overflow_dropped"] == 0:
+            candidates.append((r["boids_agent_updates_per_sec"], cell))
+    candidates.sort(reverse=True)
+    order = [c for _, c in candidates] or [BOIDS_CELL_SWEEP[0]]
+    keep = (0, BOIDS_STEPS // 2, BOIDS_STEPS - 1)
+    for cell in order:
+        p = boids_params(tb, cell)
+        result, kept = run_boids(tb, p, BOIDS_STEPS, device, keep)
+        steps_run += 1 + BOIDS_STEPS
+        print(f"boids full run: {json.dumps(result)}", flush=True)
+        if result["cell_overflow_dropped"] == 0:
+            break
+        sweep[f"cell_{int(cell)}"]["disqualified_full_run_dropped"] = (
+            result["cell_overflow_dropped"])
+    torch.cuda.synchronize()
+    launches = bk.launches["boids"]
+    if launches != steps_run:
+        raise AssertionError(f"boids: {launches} kernel launches for "
+                             f"{steps_run} steps")
+    hold_boids_steps(tb, p, kept, device)
+    for k in (keep[0], keep[-1]):
+        hold_boids_oracle(tb, p, *kept[k], f"step {k}")
+    result.update({
+        "metric": "boids_agent_updates_per_sec",
+        "value": result["boids_agent_updates_per_sec"],
+        "unit": "agent-updates/sec",
+        "vs_baseline": result["boids_agent_updates_per_sec"] / (50_000 * 30),
+        "cell_sweep": sweep,
+        "launches": launches,
+    })
+    return result
+
+
+def build_kernels(_build):
+    """Every kernel source built at once, one nvcc each; prints each one's
+    build time and ptxas lines."""
+    def one(name):
+        t0 = time.perf_counter()
+        log = _build.build(name)
+        return time.perf_counter() - t0, log
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        done = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    for name, (seconds, log) in done.items():
+        print(f"build: {seconds:.1f} s for {KERNELS[name][0]}", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from goworld_tpu_torch.ops import _build
+    from goworld_tpu_torch.ops import boids as tb
+    from goworld_tpu_torch.ops import boids_kernel as bk
     from goworld_tpu_torch.ops import event_kernel as ek
     from goworld_tpu_torch.ops import neighbor as tn
 
@@ -509,12 +830,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
-    log = _build.build("event_kernel")
-    print(f"build: {time.perf_counter() - t0:.1f} s for {SOURCE}", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    build_kernels(_build)
 
     headline, kernels = drive_headline(tn, ek, device)
     print(json.dumps({"headline": headline}), flush=True)
@@ -523,6 +839,20 @@ def main() -> int:
     for row in kernels:  # the kernel checks of both paths
         row["max_abs_err"] = max(row["max_abs_err"],
                                  multispace["kernel_max_abs_err"][row["name"]])
+
+    by_grid = boids_kernel_checks(tb, bk, device)
+    boids = drive_boids(tb, bk, device)
+    print(json.dumps({"boids_50k": boids}), flush=True)
+    source, replaces = KERNELS["boids_kernel"]
+    kernels.append({
+        "name": "boids", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": boids["launches"],
+        **{k: v for k, v in by_grid[boids["grid"]].items()
+           if k != "max_abs_err"},
+        "max_abs_err": max(g["max_abs_err"] for g in by_grid.values()),
+        "library_ms": None,
+        "by_grid": by_grid,
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

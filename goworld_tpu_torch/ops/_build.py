@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-a shared library with a plain C interface, at first use, into
+a shared library of its own with a plain C interface, at first use, into
 ``goworld_tpu_torch/_build/`` (listed in ``.gitignore``). The library's file
-name carries a hash of every file under ``csrc/`` and of the flags, so an
-edited source builds anew and an unchanged one is reused. The sources in the
-checkout are the only input; nothing is downloaded.
+name carries a hash of its source, of the shared headers (``csrc/*.cuh``) and
+of the flags, so an edited source builds anew, alone, and an unchanged one is
+reused. The sources in the checkout are the only input; nothing is
+downloaded.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, with the
 compiler's output.
@@ -51,7 +52,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in sorted(CSRC.iterdir()):
+    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -181,31 +181,40 @@ def sorted_ranks(key: torch.Tensor, n: int, num_buckets: int):
     return order, sorted_key, iota - first
 
 
-def _build_table(p: NeighborParams, bucket: torch.Tensor,
-                 active: torch.Tensor, stride: int):
-    """Bin entities into a [num_buckets * stride] slot table.
+def _slot_table(bucket: torch.Tensor, active: torch.Tensor, n: int,
+                num_buckets: int, stride: int, cap: int):
+    """Bin ``n`` rows into a [num_buckets * stride] slot table, at most
+    ``cap`` rows a bucket; later rows of a full bucket are dropped.
 
-    Entities beyond ``min(cell_capacity, stride)`` in a cell are dropped:
-    invisible this tick. Returns (table i32[num_buckets*stride] with
-    sentinel N, slot i32[N] with -1 for dropped/inactive, dropped_count,
-    order, dst), where ``dst`` is each sorted entity's table index or
-    ``table_size`` for a dropped one."""
-    n = p.capacity
+    Returns (table i32[num_buckets*stride] with sentinel n, slot i32[n] with
+    -1 for dropped/inactive, order, dst), where ``dst`` is each sorted row's
+    table index or ``table_size`` for a dropped one."""
     dev = bucket.device
-    cap = min(p.cell_capacity, stride)
-    key = torch.where(active, bucket, p.num_buckets)
-    order, sorted_key, rank = sorted_ranks(key, n, p.num_buckets)
-    tabled = sorted_key < p.num_buckets
-    ok = tabled & (rank < cap)
-    dropped = (tabled & ~ok).sum(dtype=torch.int32)
-    table_size = p.num_buckets * stride
+    key = torch.where(active, bucket, num_buckets)
+    order, sorted_key, rank = sorted_ranks(key, n, num_buckets)
+    ok = (sorted_key < num_buckets) & (rank < cap)
+    table_size = num_buckets * stride
     dst = torch.where(ok, sorted_key * stride + rank, table_size)
     # Dropped rows all land in one trailing trash entry, cut off after.
     table = torch.full((table_size + 1,), n, dtype=torch.int32, device=dev)
     table[dst.long()] = order
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     slot[order.long()] = torch.where(ok, dst, -1)
-    return table[:table_size], slot, dropped, order, dst
+    return table[:table_size], slot, order, dst
+
+
+def _build_table(p: NeighborParams, bucket: torch.Tensor,
+                 active: torch.Tensor, stride: int):
+    """Bin entities into a [num_buckets * stride] slot table.
+
+    Entities beyond ``min(cell_capacity, stride)`` in a cell are dropped:
+    invisible this tick. Returns (table, slot, dropped_count, order, dst)
+    as :func:`_slot_table` describes them."""
+    table, slot, order, dst = _slot_table(
+        bucket, active, p.capacity, p.num_buckets, stride,
+        min(p.cell_capacity, stride))
+    dropped = (active & (slot < 0)).sum(dtype=torch.int32)
+    return table, slot, dropped, order, dst
 
 
 def _fast_guard(p: NeighborParams, ppos, pact, pspc, prad, pos, act, spc,

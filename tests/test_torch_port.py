@@ -1,8 +1,9 @@
 """The port as a package: what it imports, and what it does on a CUDA card.
 
 The ``cuda`` tests need an NVIDIA GPU and skip without one; on the card
-they build the event kernel from ``goworld_tpu_torch/ops/csrc`` and hold it
-against its plain version.
+they build the kernels from ``goworld_tpu_torch/ops/csrc`` and hold each
+against its plain version. This file imports no jax, so it also runs on a
+machine with the card and no jax.
 """
 
 import ast
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import lattice_cells
+from chip_smoke import lattice_cells, seam_world
+from goworld_tpu_torch.ops import boids as tb
+from goworld_tpu_torch.ops import boids_kernel as bk
 from goworld_tpu_torch.ops import event_kernel as ek
 from goworld_tpu_torch.ops import neighbor as tn
 
@@ -32,7 +35,8 @@ def port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = port_modules()
-    assert "goworld_tpu_torch.ops.neighbor" in mods
+    for m in ("neighbor", "event_kernel", "boids", "boids_kernel"):
+        assert f"goworld_tpu_torch.ops.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -62,7 +66,7 @@ def test_port_sources_name_no_jax_package_import():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the event kernel runs only there")
+        pytest.skip("needs a CUDA device: the CUDA kernels run only there")
     return torch.device("cuda")
 
 
@@ -104,3 +108,29 @@ def test_cuda_engine_matches_cpu_engine(cuda, backend):
         assert outs[0][2] == outs[1][2]
         pos = np.clip(pos + rng.normal(0, 3, pos.shape), 0, 800)
         pos = pos.astype(np.float32)
+
+
+BOIDS_CASES = {
+    "seam_cluster": dict(capacity=512, cell_size=100.0, grid_x=8, grid_z=8),
+    "supercells": dict(capacity=512, cell_size=250.0, grid_x=4, grid_z=4,
+                       radius=100.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BOIDS_CASES))
+def test_cuda_boids_kernel_matches_plain_version(cuda, case):
+    p = tb.BoidsParams(**BOIDS_CASES[case])
+    world = [torch.tensor(a, device=cuda) for a in seam_world(p)]
+    cells, _ = tb._build_cells(p, *world)
+    before = bk.launches["boids"]
+    got = bk.boids_accel(cells, p)
+    assert bk.launches["boids"] == before + 1
+    want = bk.boids_accel_reference(cells, p)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4
+    # The whole step: the default engine on the card against the CPU one.
+    pos, vel, accel = tb.BoidsEngine(p).step(*world)
+    cpu = tb.BoidsEngine(p, device="cpu").step(*(a.cpu() for a in world))
+    assert float((accel.cpu() - cpu[2]).abs().max()) <= 1e-4
+    assert float((vel.cpu() - cpu[1]).abs().max()) <= 1e-4

@@ -4,14 +4,13 @@
 
 Runs the headline configuration of chip_smoke.py (102,400 entities, 44x44
 cells of 300) through the CUDA kernel path: the enter storm, a warm-up, then
-``TICKS`` pipelined steady ticks (dispatch t+1, then collect t), twice:
-
-1. untraced, timing each phase on the host clock: ``step_async`` (the
-   dispatch), ``collect``, and the whole tick; the device time of each tick
-   comes from CUDA events around it;
-2. under ``torch.profiler``, printing the top operations by device time and
-   by host time, the kernel time per tick, and the device busy share: that
-   kernel time over the untraced tick's wall time.
+``TICKS`` pipelined steady ticks (dispatch t+1, then collect t) through
+tools/torch_profile.py's ``profile_loop``: the device span of single
+synchronous ticks by CUDA events, the host clock's ``step_async`` (the
+dispatch), ``collect`` and whole tick over three untraced loops, and one
+loop under ``torch.profiler`` for the top operations, the kernel time per
+tick and the device busy share (that kernel time over the untraced tick's
+wall time).
 
 Prints one JSON line last; the trace goes to profile_out/tick_trace.json.
 Needs a CUDA device.
@@ -32,12 +31,11 @@ TICKS = 20
 
 
 def run_ticks(eng, pos, vel, world, args, ticks):
-    """Pipelined steady ticks; returns per-tick host seconds of the
-    dispatch and the collect, and the loop's wall seconds."""
+    """Pipelined steady ticks, moving ``pos`` in place; returns per-tick
+    host seconds of the dispatch and the collect."""
     active, space, radius = args
     dispatch, collect = [], []
     pending = None
-    t_all = time.perf_counter()
     for _ in range(ticks):
         pos += vel
         np.clip(pos, 0.0, world, out=pos)
@@ -50,8 +48,7 @@ def run_ticks(eng, pos, vel, world, args, ticks):
             collect.append(time.perf_counter() - t0)
         pending = nxt
     pending.collect()
-    torch.cuda.synchronize()
-    return dispatch, collect, time.perf_counter() - t_all
+    return {"dispatch": dispatch, "collect": collect}
 
 
 def main() -> int:
@@ -61,6 +58,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from chip_smoke import HEADLINE, card_line
     from goworld_tpu_torch.ops import neighbor as tn
+    from torch_profile import profile_loop  # beside this script
 
     print(f"card: {card_line()}", flush=True)
     p = tn.NeighborParams(**HEADLINE)
@@ -75,51 +73,10 @@ def main() -> int:
     eng.reset()
     eng.step(pos, *args)  # storm + build
     run_ticks(eng, pos, vel, world, args, 5)  # warm-up
-
-    # Device time per tick, by events around each synchronous tick.
-    device_ms = []
-    for _ in range(TICKS):
-        pos += vel
-        np.clip(pos, 0.0, world, out=pos)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        pend = eng.step_async(pos, *args, meta_dirty=False)
-        end.record()
-        pend.collect()
-        device_ms.append(start.elapsed_time(end))
-
-    dispatch, collect, wall = run_ticks(eng, pos, vel, world, args,
-                                        TICKS)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, traced_wall = run_ticks(eng, pos, vel, world, args,
-                                      TICKS)
-    from torch.autograd import DeviceType
-
-    avg = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in avg
-                    if e.device_type == DeviceType.CUDA)
-    print(avg.table(sort_by="self_device_time_total", row_limit=15))
-    print(avg.table(sort_by="self_cpu_time_total", row_limit=15))
-    out = ROOT / "profile_out"
-    out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "tick_trace.json"))
-    ms = lambda xs: float(np.median(xs) * 1e3)  # noqa: E731
-    print(json.dumps({
-        "ticks": TICKS,
-        "tick_ms": wall / TICKS * 1e3,
-        "dispatch_p50_ms": ms(dispatch),
-        "collect_p50_ms": ms(collect),
-        "device_span_p50_ms": float(np.median(device_ms)),
-        "traced_tick_ms": traced_wall / TICKS * 1e3,
-        "device_ms_per_tick": device_us / 1e3 / TICKS,
-        # Kernel time per tick (traced) over the untraced tick's wall time.
-        "device_busy_share": device_us / 1e3 / TICKS
-        / (wall / TICKS * 1e3),
-    }))
+    torch.cuda.synchronize()
+    print(json.dumps(profile_loop(
+        lambda k: run_ticks(eng, pos, vel, world, args, k), TICKS,
+        "tick_trace")))
     return 0
 
 
