@@ -26,7 +26,18 @@ toolkit. It
    (51,200 agents, radius 100, a 6,400-wide world: 15 steps at each cell
    size, the drop-free winner at 60), holds three of the winner's steps
    against the reference backend on the card and a 1,024-agent sample
-   against the float64 oracle.
+   against the float64 oracle;
+7. drives the strip+halo sharded engine at BASELINE.json's config 5
+   (``strips_1m``: 1,048,576 entity slots, 917,504 active, 8 grid-column
+   strips on the one card, 128x128 cells of 300, radius 100, the
+   in-kernel drain on): the enter storm, a first steady tick, 20 pipelined
+   and 10 synchronous steady ticks, a slow tick (1% despawned) and a
+   teleport tick (the all-gather fallback), with the launch counts zeroed
+   just before and read just after; holds every tick against the
+   single-device engine on the card and a 1,024-entity sample against
+   brute force; holds both drain forms against their plain version at one
+   strip's slab and at a lattice slab whose events overflow the inline
+   budget, and times them.
 
 The kernels are built first, all at once. It prints bench.py's metrics, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -64,13 +75,32 @@ MULTISPACE = dict(capacity=102400, cell_size=400.0, grid_x=32, grid_z=32,
 PIPELINED_TICKS = 40
 SYNC_TICKS = 200
 
+# BASELINE.json's config 5 ("1M entities, 8 game processes sharded") on
+# the strip tier: 8 grid-column strips, all on one card, at the headline's
+# density, cell, radius and motion; 7/8 of the slots active (the slot slack
+# of bench.py's SHARDED_FLOOR_CONFIG), max_events 131,072 a strip.
+STRIPS = dict(capacity=1048576, cell_size=300.0, grid_x=128, grid_z=128,
+              space_slots=1, cell_capacity=128, max_events=1048576)
+STRIPS_ACTIVE = 917504
+STRIPS_N = 8
+STRIPS_PIPELINED = 20
+STRIPS_SYNC = 10
+# The drain forms' small check: the lattice grid's slot/own plane, and an
+# inline budget its events overflow.
+LATTICE_CAPACITY = 8192
+LATTICE_DRAIN = 500
+
 # Each kernel's source, and the TPU kernel it replaces.
 KERNELS = {
     "event_kernel": ("goworld_tpu_torch/ops/csrc/event_kernel.cu",
                      "goworld_tpu/ops/neighbor.py:496"),
+    "event_drain": ("goworld_tpu_torch/ops/csrc/event_kernel.cu",
+                    "goworld_tpu/ops/neighbor.py:744"),
     "boids_kernel": ("goworld_tpu_torch/ops/csrc/boids_kernel.cu",
                      "goworld_tpu/ops/boids.py:140"),
 }
+# The CUDA sources, each built by one nvcc.
+SOURCES = ("event_kernel", "boids_kernel")
 SAMPLE = 1024
 
 # bench.py's boids_50k (bench_boids / bench_boids_tuned): the agents, the
@@ -176,6 +206,23 @@ def lattice_cells(slots, rows, cols, seed):
     return np.ascontiguousarray(cells[:, zi][:, :, xi])
 
 
+def lattice_plane(cells, seed, capacity=LATTICE_CAPACITY):
+    """The drain forms' slot/own plane for ``lattice_cells``: a distinct
+    slot id in every lane occupied in epoch A (``capacity`` elsewhere), 4
+    in 5 of them own, wrapped like the cells' halo ring."""
+    rng = np.random.default_rng(seed)
+    core = cells[:, 1:-1, 1:-1]
+    slots_, rows, cols = core.shape[:3]
+    occupied = ~np.isnan(core[..., 0, :])
+    ids = rng.permutation(capacity)[:occupied.size].reshape(occupied.shape)
+    slot = np.where(occupied, ids, capacity)
+    own = occupied & (rng.random(occupied.shape) < 0.8)
+    plane = np.stack([slot, own], axis=-2).astype(np.int32)
+    zi = np.arange(-1, rows + 1) % rows
+    xi = np.arange(-1, cols + 1) % cols
+    return np.ascontiguousarray(plane[:, zi][:, :, xi])
+
+
 def steady_cells(tn, p, pos, ppos, space, device):
     """The current grid's cells of a steady tick, built by the engine's own
     binning, table and scatter (as _step_pallas builds them)."""
@@ -191,6 +238,18 @@ def steady_cells(tn, p, pos, ppos, space, device):
     feats_a = (pos_t[:, 0], pos_t[:, 1], space, radius)
     feats_b = (ppos_t[:, 0], ppos_t[:, 1], space, radius)
     return tn._scatter_feats(p, dst, order, feats_a, feats_b)
+
+
+def event_ops(ek, cells) -> int:
+    """FP32 operations the event kernel's words need on these cells: each
+    occupied query lane against the 9 x 128 candidates of its 3x3 block, in
+    both epochs. A lane whose x is NaN in both epochs (an empty lane, or a
+    slab column no strip fills) has zero words with no pair evaluated, as
+    in the plain version, so it needs none."""
+    centre = cells[:, 1:-1, 1:-1]
+    occupied = ~(torch.isnan(centre[..., ek._FX_A, :])
+                 & torch.isnan(centre[..., ek._FX_B, :]))
+    return int(occupied.sum()) * 9 * ek.LANES * 2 * OPS_PER_PAIR_EPOCH
 
 
 def hold_kernel(ek, cells, dual) -> int:
@@ -211,7 +270,7 @@ def kernel_checks(tn, ek, p, pos, ppos, space, device):
     small lattice grid; times at the headline cells."""
     head = steady_cells(tn, p, pos, ppos, space, device)
     small = torch.tensor(lattice_cells(2, 6, 5, seed=1), device=device)
-    n_cells = head.shape[0] * (head.shape[1] - 2) * (head.shape[2] - 2)
+    ops = event_ops(ek, head)
     skip = torch.ones((), dtype=torch.bool, device=device)
     rows = []
     for dual in (False, True):
@@ -221,7 +280,6 @@ def kernel_checks(tn, ek, p, pos, ppos, space, device):
         ms = cuda_ms(lambda: ek.event_mask(head, dual))
         plain_ms = cuda_ms(lambda: ek.event_mask_reference(head, dual), 3)
         bytes_moved = head.numel() * 4 + out.numel() * 4
-        ops = n_cells * 128 * 1152 * 2 * OPS_PER_PAIR_EPOCH
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
         row = {
@@ -271,16 +329,18 @@ class SampleSets:
         a = torch.tensor(active, device=device)
         s = torch.tensor(space, device=device)
         r = torch.tensor(radius, device=device)
-        q = torch.tensor(self.slots, device=device)
-        dx = p[None, :, 0] - p[q, 0][:, None]
-        dz = p[None, :, 1] - p[q, 1][:, None]
-        d2 = dx * dx + dz * dz
-        want = (a[q][:, None] & a[None, :] & (s[q][:, None] == s[None, :])
-                & (d2 <= (r[q] * r[q])[:, None]))
-        want[torch.arange(SAMPLE, device=device), q] = False
-        if not np.array_equal(self.sets, want.cpu().numpy()):
-            raise AssertionError(f"{what}: sample interest sets differ "
-                                 f"from brute force")
+        for k in range(0, SAMPLE, 128):  # 128 queries at a time
+            q = torch.tensor(self.slots[k:k + 128], device=device)
+            dx = p[None, :, 0] - p[q, 0][:, None]
+            dz = p[None, :, 1] - p[q, 1][:, None]
+            d2 = dx * dx + dz * dz
+            want = (a[q][:, None] & a[None, :]
+                    & (s[q][:, None] == s[None, :])
+                    & (d2 <= (r[q] * r[q])[:, None]))
+            want[torch.arange(len(q), device=device), q] = False
+            if not np.array_equal(self.sets[k:k + 128], want.cpu().numpy()):
+                raise AssertionError(f"{what}: sample interest sets differ "
+                                     f"from brute force")
 
 
 def hold_against_reference(tn, p, device, compared, what):
@@ -523,7 +583,7 @@ def drive_multispace(tn, ek, device):
     torch.cuda.synchronize()
     launches = dict(ek.launches)
     fast = [bool(f) for f in fasts]
-    if fast[-1] or min(launches.values()) != len(fast):
+    if fast[-1] or min(launches[f] for f in ek.FORMS) != len(fast):
         raise AssertionError(f"multispace: fast {fast}, launches {launches}")
     sample.check(pos, active, space, radius, device, "multispace")
     hold_against_reference(tn, p, device, compared, "multispace")
@@ -536,6 +596,268 @@ def drive_multispace(tn, ek, device):
         "kernel_max_abs_err": kernel_err,
         "kernel_ms": kernel_ms,
     }
+
+
+def own_events(tn, words, plane, region):
+    """Events of own query lanes in one region of drain-form words."""
+    w = words[..., region * 72:(region + 1) * 72]
+    own = plane[:, 1:-1, 1:-1, 1] > 0
+    return int(tn._popcount16(w).sum(-1)[own].sum())
+
+
+def drain_kernel_checks(tn, ek, slab, capacity, drain, device):
+    """Each drain form against its plain version on the same inputs, at
+    one strip's slab of the first steady tick (inline budget ``drain``) and
+    at a small lattice slab whose events overflow LATTICE_DRAIN: words
+    bit-identical, pairs identical in [0, cap); times and bounds at the
+    strip slab."""
+    small_np = lattice_cells(2, 6, 5, seed=1)
+    small = (torch.tensor(small_np, device=device),
+             torch.tensor(lattice_plane(small_np, seed=2), device=device))
+    cases = ((small, LATTICE_DRAIN, LATTICE_CAPACITY, True),
+             (slab, drain, capacity, False))
+    ops = event_ops(ek, slab[0])
+    rows = []
+    for dual in (False, True):
+        name = ek.DRAIN_FORMS[int(dual)]
+        for (cells, plane), d, cap, overflows in cases:
+            words, pairs = ek.event_drain(cells, plane, dual, d, cap)
+            want_w, want_p = ek.event_drain_reference(cells, plane, dual, d,
+                                                      cap)
+            cols = d * (2 if dual else 1)
+            err = max(int((words - want_w).abs().max()),
+                      int((pairs[:, :cols] - want_p[:, :cols]).abs().max()))
+            if err:
+                raise AssertionError(f"{name}: kernel differs from the plain "
+                                     f"version at {tuple(cells.shape)}")
+            for r in range(2 if dual else 1):
+                if (own_events(tn, want_w, plane, r) > d) != overflows:
+                    raise AssertionError(f"{name}: region {r} at "
+                                         f"{tuple(cells.shape)} should "
+                                         f"{'' if overflows else 'not '}"
+                                         f"overflow")
+        cells, plane = slab
+        words, pairs = ek.event_drain(cells, plane, dual, drain, capacity)
+        ms = cuda_ms(lambda: ek.event_drain(cells, plane, dual, drain,
+                                            capacity))
+        plain_ms = cuda_ms(lambda: ek.event_drain_reference(
+            cells, plane, dual, drain, capacity), 3)
+        bytes_moved = (cells.numel() + plane.numel() + words.numel()
+                       + pairs.numel()) * 4
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        source, replaces = KERNELS["event_drain"]
+        row = {
+            "name": name, "form": "dual" if dual else "single",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "bit_identical": True, "max_abs_err": 0,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "library_ms": None,
+            "bytes": bytes_moved, "fp32_ops": ops,
+            "events": [own_events(tn, words, plane, r)
+                       for r in range(2 if dual else 1)],
+        }
+        if not dual:  # what a fast tick pays for the skipped launch
+            skip = torch.ones((), dtype=torch.bool, device=device)
+            row["skipped_ms"] = cuda_ms(lambda: ek.event_drain(
+                cells, plane, False, drain, capacity, skip=skip))
+        rows.append(row)
+        print(f"kernel {name}: bit-identical at {tuple(small[0].shape)} "
+              f"(overflowing {LATTICE_DRAIN}) and {tuple(cells.shape)}; "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return rows
+
+
+def drive_strips(tn, ek, ts, make_mesh, device):
+    """BASELINE config 5 through the strip tier's engine, 8 strips on one
+    card: the enter storm, a first steady tick (synchronous; strip 0's slab
+    kept for the kernel checks), STRIPS_PIPELINED pipelined steady ticks,
+    STRIPS_SYNC synchronous ones, a slow tick (1% despawned) and a teleport
+    tick (1% teleported across the map), with the launch counts zeroed
+    just before and read just after. Then every tick again through the
+    single-device engine on the card, a sample against brute force, and
+    the drain forms against their plain version."""
+    p = tn.NeighborParams(**STRIPS)
+    n = p.capacity
+    world = p.grid_x * p.cell_size
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0, world, (n, 2)).astype(np.float32)
+    active = np.arange(n) < STRIPS_ACTIVE
+    space = np.zeros(n, np.int32)
+    radius = np.full(n, 100.0, np.float32)
+    vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+    mesh = make_mesh(STRIPS_N, device)
+    eng = ts.SpatialShardedNeighborEngine(p, mesh)
+    if eng.backend != "kernel" or eng.drain_inline != eng.events_inline:
+        raise AssertionError("the default strip engine is not the kernel "
+                             "path with the in-kernel drain")
+    eng.reset()
+    ticks = []  # (label, world, out, mode, fast)
+    paged = []  # (full_repage, shard sides paged) of each tick
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ek.reset_launch_counts()
+
+    def world_now():
+        return (pos.copy(), active.copy(), space, radius)
+
+    def step(label, meta_dirty=True):
+        w = world_now()
+        pend = eng.step_async(*w, meta_dirty=meta_dirty)
+        mode = eng.last_mode
+        out = pend.collect()
+        ticks.append((label, w, out, mode, eng.last_fast_tick))
+        paged.append((pend.full_repage, pend.paged))
+        return out
+
+    t0 = time.perf_counter()
+    storm = step("storm")
+    storm_ms = (time.perf_counter() - t0) * 1e3
+
+    # The first steady tick, with strip 0's current slab kept.
+    kept = {}
+    drain_form = ts.event_drain
+
+    def keep_slab(cells, plane, dual, *args, **kw):
+        if dual and not kept:
+            kept["slab"] = (cells, plane)
+        return drain_form(cells, plane, dual, *args, **kw)
+
+    walk(pos, vel, world)
+    ts.event_drain = keep_slab
+    try:
+        step("tick 1", meta_dirty=False)
+    finally:
+        ts.event_drain = drain_form
+
+    # Pipelined steady ticks: dispatch t+1, then collect t. The window
+    # holds only what a game does; the checks run afterwards.
+    dispatch_s, collect_s = [], []
+    pending = None  # (label, world, mode at dispatch, pending step)
+    t_all0 = time.perf_counter()
+    for k in range(STRIPS_PIPELINED + 1):
+        nxt = None
+        if k < STRIPS_PIPELINED:
+            walk(pos, vel, world)
+            w = world_now()
+            t0 = time.perf_counter()
+            pend = eng.step_async(*w, meta_dirty=False)
+            dispatch_s.append(time.perf_counter() - t0)
+            nxt = (f"pipelined {k + 2}", w, eng.last_mode, pend)
+        if pending is not None:
+            label, w_prev, mode, pend_prev = pending
+            t0 = time.perf_counter()
+            out = pend_prev.collect()
+            collect_s.append(time.perf_counter() - t0)
+            ticks.append((label, w_prev, out, mode, eng.last_fast_tick))
+            paged.append((pend_prev.full_repage, pend_prev.paged))
+        pending = nxt
+    t_all = time.perf_counter() - t_all0
+
+    drain_s = []
+    for j in range(STRIPS_SYNC):
+        walk(pos, vel, world)
+        w = world_now()
+        pend = eng.step_async(*w, meta_dirty=False)
+        mode = eng.last_mode
+        pend.wait_device()
+        t0 = time.perf_counter()
+        out = pend.collect()
+        drain_s.append(time.perf_counter() - t0)
+        ticks.append((f"sync {j}", w, out, mode, eng.last_fast_tick))
+        paged.append((pend.full_repage, pend.paged))
+
+    despawn = rng.choice(np.flatnonzero(active), STRIPS_ACTIVE // 100,
+                         replace=False)
+    active[despawn] = False
+    t0 = time.perf_counter()
+    step("slow")
+    slow_ms = (time.perf_counter() - t0) * 1e3
+
+    hop = rng.choice(np.flatnonzero(active), STRIPS_ACTIVE // 100,
+                     replace=False)
+    pos[hop] = rng.uniform(0, world, (len(hop), 2)).astype(np.float32)
+    t0 = time.perf_counter()
+    step("teleport")
+    teleport_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(ek.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    modes = [tk[3] for tk in ticks]
+    fasts = [tk[4] for tk in ticks]
+    steady = slice(1, len(ticks) - 2)
+    if (set(modes[:-1]) != {"spatial"} or modes[-1] != "fallback:teleport"
+            or not all(fasts[steady]) or fasts[-2]):
+        raise AssertionError(f"strips_1m: modes {modes}, fast {fasts}")
+    spatial_ticks = modes.count("spatial")
+    for form in ek.DRAIN_FORMS:
+        if launches[form] != spatial_ticks * STRIPS_N:
+            raise AssertionError(f"strips_1m: launches {launches} for "
+                                 f"{spatial_ticks} strip ticks")
+    for label, _, out, _, _ in ticks:
+        check_pairs(out[0], n, f"strips_1m {label} enters")
+        check_pairs(out[1], n, f"strips_1m {label} leaves")
+    metrics = {
+        "config": {**STRIPS, "active": STRIPS_ACTIVE, "strips": STRIPS_N,
+                   "strip_cols": eng.strip_cols, "halo_cap": eng.halo_cap,
+                   "devices": [str(d) for d in mesh]},
+        "sharded_updates_per_sec": STRIPS_PIPELINED / t_all * n,
+        "ticks_per_sec": STRIPS_PIPELINED / t_all,
+        "events_per_tick": float(np.mean([
+            len(tk[2][0]) + len(tk[2][1]) for tk in ticks
+            if tk[0].startswith("pipelined")])),
+        "mode_ticks": {m: modes.count(m) for m in sorted(set(modes))},
+        "fast_ticks": eng.total_fast_ticks,
+        "shard_migrations": eng.total_migrations,
+        "fallback_ticks": eng.total_fallbacks,
+        "halo_bytes_per_tick": eng.halo_bytes_per_tick,
+        "allgather_equiv_bytes_per_tick": eng.allgather_bytes_per_tick,
+        "dispatch_p50_ms": pct(dispatch_s, 50),
+        "collect_p50_ms": pct(collect_s, 50),
+        "collect_p99_ms": pct(collect_s, 99),
+        "post_step_drain_p50_ms": pct(drain_s, 50),
+        "full_repage_ticks": sum(full and n > 0 for full, n in paged),
+        "storm_events": len(storm[0]),
+        "storm_ms": storm_ms,
+        "slow_tick_ms": slow_ms,
+        "teleport_tick_ms": teleport_ms,
+        "dropped": [tk[2][2] for tk in ticks],
+        "peak_memory_allocated_bytes": peak,
+        "launches": launches,
+    }
+    slab = kept["slab"]
+    del eng, pend, pend_prev, kept
+    torch.cuda.empty_cache()
+
+    # Every tick again through the single-device engine on the card.
+    single = tn.NeighborEngine(p, backend="kernel", device=device)
+    single.reset()
+    sample = SampleSets(n, seed=3)
+    for label, w, out, _, _ in ticks:
+        want = single.step(*w)
+        for k, side in ((0, "enters"), (1, "leaves")):
+            if (len(want[k]) != len(out[k])
+                    or not np.array_equal(pair_keys(want[k], n),
+                                          pair_keys(out[k], n))):
+                raise AssertionError(f"strips_1m {label}: {side} differ "
+                                     f"from the single-device engine")
+        if want[2] != out[2]:
+            raise AssertionError(f"strips_1m {label}: dropped differs")
+        sample.apply(out[0], out[1])
+    print(f"strips_1m: {len(ticks)} ticks equal to the single-device engine",
+          flush=True)
+    sample.check(*ticks[-1][1], device, "strips_1m")
+    del single
+    torch.cuda.empty_cache()
+    rows = drain_kernel_checks(tn, ek, slab, n, p.max_events // STRIPS_N,
+                               device)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    return metrics, rows
 
 
 def boids_params(tb, cell):
@@ -805,8 +1127,8 @@ def build_kernels(_build):
         log = _build.build(name)
         return time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        done = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        done = dict(zip(SOURCES, pool.map(one, SOURCES)))
     for name, (seconds, log) in done.items():
         print(f"build: {seconds:.1f} s for {KERNELS[name][0]}", flush=True)
         for line in log.splitlines():
@@ -824,6 +1146,8 @@ def main() -> int:
     from goworld_tpu_torch.ops import boids_kernel as bk
     from goworld_tpu_torch.ops import event_kernel as ek
     from goworld_tpu_torch.ops import neighbor as tn
+    from goworld_tpu_torch.parallel import make_mesh
+    from goworld_tpu_torch.parallel import spatial as ts
 
     device = torch.device("cuda")
     card = card_line()
@@ -853,6 +1177,9 @@ def main() -> int:
         "library_ms": None,
         "by_grid": by_grid,
     })
+    strips, drain_rows = drive_strips(tn, ek, ts, make_mesh, device)
+    print(json.dumps({"strips_1m": strips}), flush=True)
+    kernels[2:2] = drain_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

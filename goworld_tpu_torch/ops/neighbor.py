@@ -181,6 +181,28 @@ def sorted_ranks(key: torch.Tensor, n: int, num_buckets: int):
     return order, sorted_key, iota - first
 
 
+def sorted_ranks_by(key: torch.Tensor, tie: torch.Tensor, n_rows: int):
+    """Stable (key, tie) lexicographic sort + within-key-run ranks.
+
+    Like :func:`sorted_ranks`, but ties within a bucket break by ``tie``
+    (the entity SLOT id) instead of row position: a seam cell's rows exist
+    as copies on two strips in different local orders, so cell-capacity
+    drops must key on something globally stable (parallel/spatial.py).
+    Two stable sorts, least significant key first, give the order of the
+    JAX ``lax.sort((key, tie, iota), num_keys=2)``. Returns (order,
+    sorted_key, rank)."""
+    iota = torch.arange(n_rows, dtype=torch.int32, device=key.device)
+    by_tie = torch.argsort(tie, stable=True)
+    order = by_tie[torch.argsort(key[by_tie], stable=True)].to(torch.int32)
+    sorted_key = key[order.long()]
+    boundary = torch.cat([
+        torch.ones(1, dtype=torch.bool, device=key.device),
+        sorted_key[1:] != sorted_key[:-1],
+    ])
+    first = torch.cummax(torch.where(boundary, iota, 0), 0).values
+    return order, sorted_key, iota - first
+
+
 def _slot_table(bucket: torch.Tensor, active: torch.Tensor, n: int,
                 num_buckets: int, stride: int, cap: int):
     """Bin ``n`` rows into a [num_buckets * stride] slot table, at most
@@ -390,15 +412,22 @@ def _step_packed_jnp(p: NeighborParams, ppos, pact, pspc, prad, pos, act,
 # --- kernel path -------------------------------------------------------------
 
 
-def _scatter_feats(p: NeighborParams, dst, order, feats_a, feats_b):
+def _scatter_feats(p: NeighborParams, dst, order, feats_a, feats_b,
+                   gx_ext: int | None = None):
     """The dense cell feature layout, by one row-vector scatter.
 
     ``order``/``dst`` come from _build_table. feats_a = (x, z, space,
     radius) of the epoch the grid is binned by; feats_b = the same four for
     the other epoch. Returns f32[space_slots, gz+2, gx+2, F, LANES]: NaN in
-    empty lanes, and a torus-wrapped halo ring."""
+    empty lanes, and a torus-wrapped halo ring.
+
+    ``gx_ext`` is the x extent of a STRIP-LOCAL slab (parallel/spatial.py),
+    ghost columns included: real rows from the neighbor strips live there,
+    so only z gets the torus wrap ring and the result is
+    f32[space_slots, gz+2, gx_ext, F, LANES]."""
     dev = dst.device
-    gz, gx = p.grid_z, p.grid_x
+    gz = p.grid_z
+    gx = p.grid_x if gx_ext is None else gx_ext
     table_size = p.space_slots * gz * gx * LANES
     vals = torch.stack(
         [f.to(torch.float32) for f in feats_a]
@@ -412,6 +441,8 @@ def _scatter_feats(p: NeighborParams, dst, order, feats_a, feats_b):
     cells = flat[:table_size].view(p.space_slots, gz, gx, LANES, _F)
     cells = cells.permute(0, 1, 2, 4, 3)  # [S, gz, gx, F, LANES]
     zi = torch.remainder(torch.arange(-1, gz + 1, device=dev), gz)
+    if gx_ext is not None:
+        return cells[:, zi].contiguous()
     xi = torch.remainder(torch.arange(-1, gx + 1, device=dev), gx)
     return cells[:, zi][:, :, xi].contiguous()
 
@@ -431,6 +462,8 @@ def _drain_bits(
     table: torch.Tensor,  # i32[num_buckets * LANES] id table of that grid
     start_flat,  # EVENT RANK to resume from (name kept for the pager)
     max_events: int | None = None,
+    gx_ext: int | None = None,  # strip-local x extent (parallel/spatial.py)
+    wrap_x: bool = True,  # False: x is a strip slab, halo cols are physical
 ):
     """Kernel-path drain: the (entity, other) pairs of event RANKS
     [start_rank, start_rank + max_events) of the packed bit mask, by
@@ -438,11 +471,20 @@ def _drain_bits(
     word (by ``p.drain_mode``), then its bit by prefix counts.
 
     Candidate c of entity i is halo cell c // LANES (row-major 3x3), lane
-    c % LANES. Returns (pairs i32[max_events, 2], total events)."""
+    c % LANES. Returns (pairs i32[max_events, 2], total events).
+
+    ``gx_ext``/``wrap_x`` give the candidate-cell arithmetic of a
+    STRIP-LOCAL slab (parallel/spatial.py): ``cx`` is then the local slab
+    column, the bucket space is ``space_slots * grid_z * gx_ext``, and x
+    offsets index physical ghost columns instead of wrapping the torus.
+    ``packed_e`` may hold fewer rows than ``capacity`` there (own rows
+    only); the pair's entity side is then a ROW index the caller maps to
+    a slot."""
     if max_events is None:
         max_events = p.max_events
     start_rank = start_flat
     n = p.capacity
+    gxl = p.grid_x if gx_ext is None else gx_ext
     dev = packed_e.device
     n_rows = packed_e.shape[0]
     pc = _popcount16(packed_e)  # [N, W]
@@ -537,9 +579,15 @@ def _drain_bits(
     dzo = hc // 3 - 1
     dxo = hc % 3 - 1
     czz = torch.remainder(cz[rl] + dzo, p.grid_z)
-    cxx = torch.remainder(cx[rl] + dxo, p.grid_x)
-    bucket = (sm[rl] * p.grid_z + czz) * p.grid_x + cxx
-    other = table[(bucket * LANES + lane).long()]
+    if wrap_x:
+        cxx = torch.remainder(cx[rl] + dxo, gxl)
+    else:
+        cxx = cx[rl] + dxo  # strip slab: ghost columns are physical
+    bucket = (sm[rl] * p.grid_z + czz) * gxl + cxx
+    # Clamped as JAX clamps a gather: only a rank past the total (masked
+    # below) can fall outside a strip slab's table.
+    tidx = torch.clamp(bucket * LANES + lane, 0, table.shape[0] - 1)
+    other = table[tidx.long()]
     ent = torch.where(valid, row, n)
     other = torch.where(valid, other, n)
     return torch.stack([ent, other], dim=1), total
@@ -645,18 +693,7 @@ class PendingStep:
         self._pager = pager  # pager(which, remaining, start_flat) -> pairs
         self._collected = False
         self.fast = fast
-        if out.device.type == "cuda":
-            stream = torch.cuda.current_stream(out.device)
-            self._done = torch.cuda.Event()
-            self._done.record(stream)
-            self._host = torch.empty(out.shape, dtype=out.dtype,
-                                     pin_memory=True)
-            self._host.copy_(out, non_blocking=True)
-            self._copied = torch.cuda.Event()
-            self._copied.record(stream)
-        else:
-            self._done = self._copied = None
-            self._host = out
+        self._host, self._done, self._copied = start_host_copy(out)
 
     def is_ready(self) -> bool:
         """True when collect() will not block on device compute."""
@@ -816,17 +853,7 @@ class NeighborEngine:
         return tuple(a.cpu().numpy() for a in self._state[0:4])
 
     def _upload(self, arr, dtype) -> torch.Tensor:
-        """A copy of host ``arr`` on the device. Never a view of the caller's
-        buffer: the tensor becomes next tick's PREVIOUS state, and in-place
-        game updates must not rewrite it. On CUDA the copy goes through
-        pinned memory without blocking."""
-        a = np.asarray(arr)
-        if self.device.type == "cuda":
-            host = torch.empty(a.shape, dtype=_TORCH_DTYPE[dtype],
-                               pin_memory=True)
-            host.numpy()[...] = a
-            return host.to(self.device, non_blocking=True)
-        return torch.tensor(a.astype(dtype, copy=False), device=self.device)
+        return upload(arr, dtype, self.device)
 
     def _page(self, ctx, remaining: int, start_flat: int) -> np.ndarray:
         p = self.params
@@ -921,6 +948,35 @@ _TORCH_DTYPE = {
     np.int32: torch.int32,
     np.bool_: torch.bool,
 }
+
+
+def upload(arr, dtype, device: torch.device) -> torch.Tensor:
+    """A copy of host ``arr`` as ``dtype`` on ``device``. Never a view of
+    the caller's buffer: an engine keeps the tensor as next tick's PREVIOUS
+    state, and in-place game updates must not rewrite it. On CUDA the copy
+    goes through pinned memory without blocking."""
+    a = np.asarray(arr)
+    if device.type == "cuda":
+        host = torch.empty(a.shape, dtype=_TORCH_DTYPE[dtype], pin_memory=True)
+        host.numpy()[...] = a
+        return host.to(device, non_blocking=True)
+    return torch.tensor(a.astype(dtype, copy=False), device=device)
+
+
+def start_host_copy(out: torch.Tensor):
+    """Queue ``out``'s copy to the host behind the work that computes it.
+    Returns (host tensor, done event, copied event); on the CPU the events
+    are None and the host tensor is ``out`` itself."""
+    if out.device.type != "cuda":
+        return out, None, None
+    stream = torch.cuda.current_stream(out.device)
+    done = torch.cuda.Event()
+    done.record(stream)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(stream)
+    return host, done, copied
 
 
 def check_space_ids(space: np.ndarray, active: np.ndarray) -> None:

@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import lattice_cells, seam_world
+from chip_smoke import lattice_cells, lattice_plane, seam_world
 from goworld_tpu_torch.ops import boids as tb
 from goworld_tpu_torch.ops import boids_kernel as bk
 from goworld_tpu_torch.ops import event_kernel as ek
 from goworld_tpu_torch.ops import neighbor as tn
+from goworld_tpu_torch.parallel import make_mesh
+from goworld_tpu_torch.parallel import spatial as ts
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "goworld_tpu_torch"
@@ -35,8 +37,10 @@ def port_modules():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = port_modules()
-    for m in ("neighbor", "event_kernel", "boids", "boids_kernel"):
-        assert f"goworld_tpu_torch.ops.{m}" in mods
+    for m in ("ops.neighbor", "ops.event_kernel", "ops.boids",
+              "ops.boids_kernel", "parallel", "parallel.mesh",
+              "parallel.spatial"):
+        assert f"goworld_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -50,7 +54,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_sources_name_no_jax_package_import():
-    for f in PACKAGE.rglob("*.py"):
+    files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert PACKAGE / "parallel" / "spatial.py" in files
+    for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -134,3 +140,84 @@ def test_cuda_boids_kernel_matches_plain_version(cuda, case):
     cpu = tb.BoidsEngine(p, device="cpu").step(*(a.cpu() for a in world))
     assert float((accel.cpu() - cpu[2]).abs().max()) <= 1e-4
     assert float((vel.cpu() - cpu[1]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("drain", [100, 1 << 20])  # overflowing, not
+def test_cuda_drain_kernel_matches_plain_version(cuda, dual, drain):
+    cells_np = lattice_cells(2, 6, 5, seed=1)
+    cells = torch.tensor(cells_np, device=cuda)
+    plane = torch.tensor(lattice_plane(cells_np, seed=2), device=cuda)
+    form = ek.DRAIN_FORMS[int(dual)]
+    before = ek.launches[form]
+    words, pairs = ek.event_drain(cells, plane, dual, drain, 8192)
+    assert ek.launches[form] == before + 1
+    want_w, want_p = ek.event_drain_reference(cells, plane, dual, drain,
+                                              8192)
+    torch.cuda.synchronize()
+    cols = drain * (2 if dual else 1)
+    assert torch.equal(words, want_w)
+    assert torch.equal(pairs[:, :cols], want_p[:, :cols])
+    skip = torch.ones((), dtype=torch.bool, device=cuda)
+    skipped = ek.event_drain(cells, plane, dual, drain, 8192, skip=skip)
+    assert skipped[1].shape == want_p.shape
+
+
+def strip_engine_matches_single_device_engine(mesh, inkernel_drain):
+    """8 strips on ``mesh`` against the single-device kernel engine on the
+    first card: a storm past the inline budget, steady drift, despawns and
+    a teleport (the all-gather fallback)."""
+    p = tn.NeighborParams(capacity=2048, cell_size=100.0, grid_x=64,
+                          grid_z=8, space_slots=2, cell_capacity=64,
+                          max_events=1024)
+    strips = ts.SpatialShardedNeighborEngine(p, mesh, strip_cols=10,
+                                             inkernel_drain=inkernel_drain)
+    single = tn.NeighborEngine(p)
+    assert strips.mesh == mesh
+    strips.reset()
+    single.reset()
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(0, [6400, 800], (2048, 2)).astype(np.float32)
+    active = rng.random(2048) < 0.8
+    space = rng.integers(0, 2, 2048).astype(np.int32)
+    radius = np.full(2048, 100.0, np.float32)
+    modes = []
+    for k in range(5):
+        if k == 3:
+            active = active & (rng.random(2048) < 0.95)
+        if k == 4:
+            pos[:20] = rng.uniform(0, [6400, 800], (20, 2))
+        got = strips.step(pos, active, space, radius)
+        want = single.step(pos, active, space, radius)
+        modes.append(strips.last_mode)
+        for i in (0, 1):
+            assert len(got[i]) == len(want[i])
+            assert (sorted(map(tuple, got[i].tolist()))
+                    == sorted(map(tuple, want[i].tolist())))
+        assert got[2] == want[2]
+        pos = np.clip(pos + rng.normal(0, 3, pos.shape), 0,
+                      [6400, 799]).astype(np.float32)
+    assert modes[:4] == ["spatial"] * 4 and modes[4] == "fallback:teleport"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inkernel_drain", [True, False])
+def test_cuda_strip_engine_matches_single_device_engine(cuda,
+                                                        inkernel_drain):
+    mesh = make_mesh(8)
+    assert mesh == [torch.device("cuda", torch.cuda.current_device())] * 8
+    strip_engine_matches_single_device_engine(mesh, inkernel_drain)
+
+
+@pytest.mark.cuda
+def test_cuda_strip_engine_spread_over_cards(cuda):
+    """The strips spread over every card of the machine: the bands, the
+    guard's reductions, the counts and the fallback's all-gather cross
+    cards."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = make_mesh(8, [f"cuda:{k}" for k in range(cards)])
+    assert len(set(mesh)) == cards
+    strip_engine_matches_single_device_engine(mesh, True)

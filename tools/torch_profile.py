@@ -1,5 +1,6 @@
 """The measure-profile-export loop that the port's profile tools share
-(tools/profile_torch_tick.py, tools/profile_torch_boids.py).
+(tools/profile_torch_tick.py, tools/profile_torch_boids.py,
+tools/profile_torch_strips.py).
 
 A tool hands :func:`profile_loop` a ``loop(k)`` that runs k steps of its
 workload on one card, keeping its own state, and returns the host seconds of
@@ -27,7 +28,8 @@ def _timed(loop, k):
 
 
 def profile_loop(loop, steps: int, trace_name: str,
-                 kernel: str | None = None, loops: int = 3) -> dict:
+                 kernel: str | tuple[str, ...] | None = None,
+                 loops: int = 3) -> dict:
     """Where ``steps`` steps of ``loop`` spend their time:
 
     1. the device span of each of ``steps`` single steps, by CUDA events
@@ -41,7 +43,8 @@ def profile_loop(loop, steps: int, trace_name: str,
     Returns step_ms (median loop), step_ms_of_each_loop, <phase>_p50_ms,
     device_span_p50_ms, traced_step_ms, device_ms_per_step (traced),
     kernel_ms_per_step (the device time of operations whose name holds
-    ``kernel``, when given) and device_busy_share: the traced device time a
+    ``kernel``, or one of the names in a tuple, when given) and
+    device_busy_share: the traced device time a
     step over the untraced step's wall time."""
     device_ms = []
     for _ in range(steps):
@@ -87,8 +90,10 @@ def profile_loop(loop, steps: int, trace_name: str,
         "device_ms_per_step": device_us / 1e3 / steps,
     }
     if kernel is not None:
+        names = (kernel,) if isinstance(kernel, str) else kernel
         result["kernel_ms_per_step"] = sum(
-            e.self_device_time_total for e in device if kernel in e.key
+            e.self_device_time_total for e in device
+            if any(k in e.key for k in names)
         ) / 1e3 / steps
     result["device_busy_share"] = result["device_ms_per_step"] / step_ms
     return result
