@@ -48,6 +48,7 @@ is not 0. Without a CUDA device it exits with 1 and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -206,14 +207,18 @@ def lattice_cells(slots, rows, cols, seed):
     return np.ascontiguousarray(cells[:, zi][:, :, xi])
 
 
-def lattice_plane(cells, seed, capacity=LATTICE_CAPACITY):
+def lattice_plane(cells, seed, capacity=LATTICE_CAPACITY,
+                  either_epoch=False):
     """The drain forms' slot/own plane for ``lattice_cells``: a distinct
-    slot id in every lane occupied in epoch A (``capacity`` elsewhere), 4
-    in 5 of them own, wrapped like the cells' halo ring."""
+    slot id in every lane occupied in epoch A (in epoch A or B with
+    ``either_epoch``; ``capacity`` elsewhere), 4 in 5 of them own, wrapped
+    like the cells' halo ring."""
     rng = np.random.default_rng(seed)
     core = cells[:, 1:-1, 1:-1]
     slots_, rows, cols = core.shape[:3]
     occupied = ~np.isnan(core[..., 0, :])
+    if either_epoch:
+        occupied |= ~np.isnan(core[..., 4, :])
     ids = rng.permutation(capacity)[:occupied.size].reshape(occupied.shape)
     slot = np.where(occupied, ids, capacity)
     own = occupied & (rng.random(occupied.shape) < 0.8)
@@ -221,6 +226,57 @@ def lattice_plane(cells, seed, capacity=LATTICE_CAPACITY):
     zi = np.arange(-1, rows + 1) % rows
     xi = np.arange(-1, cols + 1) % cols
     return np.ascontiguousarray(plane[:, zi][:, :, xi])
+
+
+# The kinds of cell of ``skip_edge_cells``.
+SKIP_EDGE_KINDS = ("random", "prefix", "empty", "full", "lane_31", "lane_127")
+
+
+def skip_edge_cells(slots, rows, cols, seed):
+    """Event-kernel input f32[slots, rows+2, cols+2, 8, 128] laid out to
+    test a kernel that skips empty query lanes and empty 32-lane candidate
+    chunks, on the integer lattice of ``lattice_cells``. Each cell is one
+    of SKIP_EDGE_KINDS, in a seeded order: lanes occupied at random (not
+    from lane 0 up); a prefix at the engine's density (40-64 lanes, the
+    headline's ~53 a cell); empty; full; lane 31 the only occupied lane of
+    lanes 0-31 (the others at random); lane 127 the only occupied lane (the
+    query is then the only candidate of its chunk). Outside the prefix
+    cells, 1 in 8 occupied lanes is present in epoch B only (NaN x in epoch
+    A) and 1 in 8 in epoch A only. Slot 0 holds one space id, the other
+    slots three (a kernel may leave out the space test where no pair can
+    fail it). The halo ring wraps."""
+    rng = np.random.default_rng(seed)
+    shape = (slots, rows, cols, 128)
+    n_kinds = len(SKIP_EDGE_KINDS)
+    kind = rng.permutation(np.arange(slots * rows * cols) % n_kinds)
+    kind = kind.reshape(shape[:3])[..., None]
+    lane = np.arange(128)
+    random = rng.random(shape) < rng.uniform(0.05, 0.9, shape[:3])[..., None]
+    prefix = lane < rng.integers(40, 65, shape[:3])[..., None]
+    occupied = np.select(
+        [kind == k for k in range(n_kinds)],
+        [random, prefix, np.zeros(shape, bool), np.ones(shape, bool),
+         np.where(lane < 32, lane == 31, random),
+         np.broadcast_to(lane == 127, shape)])
+    xz = rng.integers(0, 30, shape + (2,)).astype(np.float32)
+    move = rng.integers(-4, 5, shape + (2,)).astype(np.float32)
+    n_spaces = np.where(np.arange(slots) == 0, 1, 3)[:, None, None, None]
+    spc = (rng.integers(0, 3, shape) % n_spaces).astype(np.float32)
+    rad = rng.choice(np.array([5, 10, 13, 25], np.float32), shape)
+    feats = [xz[..., 0], xz[..., 1], spc, rad,
+             xz[..., 0] + move[..., 0], xz[..., 1] + move[..., 1],
+             np.where(rng.random(shape) < 0.1, (spc + 1) % n_spaces, spc),
+             np.where(rng.random(shape) < 0.2, rad + 5, rad)]
+    cells = np.full(shape[:3] + (8, 128), np.nan, np.float32)
+    for f, v in enumerate(feats):
+        cells[..., f, :] = np.where(occupied, v, np.nan)
+    one_epoch = rng.random(shape)
+    mixed = kind != SKIP_EDGE_KINDS.index("prefix")
+    cells[..., 0, :][mixed & (one_epoch < 0.125)] = np.nan  # B only
+    cells[..., 4, :][mixed & (one_epoch >= 0.875)] = np.nan  # A only
+    zi = np.arange(-1, rows + 1) % rows
+    xi = np.arange(-1, cols + 1) % cols
+    return np.ascontiguousarray(cells[:, zi][:, :, xi])
 
 
 def steady_cells(tn, p, pos, ppos, space, device):
@@ -241,15 +297,33 @@ def steady_cells(tn, p, pos, ppos, space, device):
 
 
 def event_ops(ek, cells) -> int:
-    """FP32 operations the event kernel's words need on these cells: each
-    occupied query lane against the 9 x 128 candidates of its 3x3 block, in
-    both epochs. A lane whose x is NaN in both epochs (an empty lane, or a
-    slab column no strip fills) has zero words with no pair evaluated, as
-    in the plain version, so it needs none."""
-    centre = cells[:, 1:-1, 1:-1]
-    occupied = ~(torch.isnan(centre[..., ek._FX_A, :])
-                 & torch.isnan(centre[..., ek._FX_B, :]))
-    return int(occupied.sum()) * 9 * ek.LANES * 2 * OPS_PER_PAIR_EPOCH
+    """FP32 operations the event kernel's words need on these cells: in
+    each epoch E, every query lane with x_E set against every candidate of
+    its 3x3 block with x_E set, 7 operations a pair. A pair with x_E NaN on
+    either side is invalid in epoch E whatever else it holds, so it needs
+    no operation."""
+    rows, cols = cells.shape[1] - 2, cells.shape[2] - 2
+    pairs = 0
+    for fx in (ek._FX_A, ek._FX_B):
+        have = (~torch.isnan(cells[..., fx, :])).sum(-1, dtype=torch.int64)
+        block = sum(have[:, di:di + rows, dj:dj + cols]
+                    for di in range(3) for dj in range(3))
+        pairs += int((have[:, 1:-1, 1:-1] * block).sum())
+    return pairs * OPS_PER_PAIR_EPOCH
+
+
+def event_bound(ek, ops, *tensors):
+    """The least time for an event kernel form: each of ``tensors`` (its
+    inputs and outputs) moved once over the memory rate, against ``ops``
+    FP32 operations over the peak rate. Returns the row's bound keys."""
+    bytes_moved = sum(x.numel() * x.element_size() for x in tensors)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "bytes": bytes_moved, "fp32_ops": ops,
+    }
 
 
 def hold_kernel(ek, cells, dual) -> int:
@@ -266,41 +340,37 @@ def hold_kernel(ek, cells, dual) -> int:
 
 
 def kernel_checks(tn, ek, p, pos, ppos, space, device):
-    """Each form against its plain version, at the headline cells and at a
-    small lattice grid; times at the headline cells."""
+    """Each form against its plain version, at the headline cells, a small
+    lattice grid and a skip-edge grid; times at the headline cells."""
     head = steady_cells(tn, p, pos, ppos, space, device)
-    small = torch.tensor(lattice_cells(2, 6, 5, seed=1), device=device)
+    small = [torch.tensor(lattice_cells(2, 6, 5, seed=1), device=device),
+             torch.tensor(skip_edge_cells(2, 6, 5, seed=5), device=device)]
     ops = event_ops(ek, head)
     skip = torch.ones((), dtype=torch.bool, device=device)
     rows = []
     for dual in (False, True):
         name = ek.FORMS[int(dual)]
-        err = max(hold_kernel(ek, cells, dual) for cells in (small, head))
+        err = max(hold_kernel(ek, cells, dual) for cells in (*small, head))
         out = ek.event_mask(head, dual)
         ms = cuda_ms(lambda: ek.event_mask(head, dual))
         plain_ms = cuda_ms(lambda: ek.event_mask_reference(head, dual), 3)
-        bytes_moved = head.numel() * 4 + out.numel() * 4
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
         row = {
             "name": name, "form": "dual" if dual else "single",
             "route": "cuda", "source": KERNELS["event_kernel"][0],
             "replaces": KERNELS["event_kernel"][1],
             "launches": None, "bit_identical": True, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            **event_bound(ek, ops, head, out),
             "library_ms": None,
-            "bytes": bytes_moved, "fp32_ops": ops,
         }
         if not dual:  # what a fast tick pays for the skipped launch
             row["skipped_ms"] = cuda_ms(
                 lambda: ek.event_mask(head, False, skip=skip))
         rows.append(row)
-        print(f"kernel {name}: bit-identical at {tuple(small.shape)} and "
-              f"{tuple(head.shape)}; {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
-              flush=True)
+        print(f"kernel {name}: bit-identical at the lattice and skip-edge "
+              f"grids {tuple(small[0].shape)} and {tuple(head.shape)}; "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
     del head, small
     torch.cuda.empty_cache()
     return rows
@@ -543,13 +613,18 @@ def drive_multispace(tn, ek, device):
 
     # Both forms against their plain version at this path's cells.
     cells = steady_cells(tn, p, pos + vel, pos, space, device)
-    kernel_err, kernel_ms = {}, {}
+    ops = event_ops(ek, cells)
+    kernel_err, kernel_ms, kernel_bound = {}, {}, {}
     for dual in (False, True):
         name = ek.FORMS[int(dual)]
         kernel_err[name] = hold_kernel(ek, cells, dual)
         kernel_ms[name] = cuda_ms(lambda: ek.event_mask(cells, dual), 5)
+        kernel_bound[name] = event_bound(ek, ops, cells,
+                                         ek.event_mask(cells, dual))
         print(f"kernel {name}: bit-identical at {tuple(cells.shape)}; "
-              f"{kernel_ms[name]:.4f} ms", flush=True)
+              f"{kernel_ms[name]:.4f} ms, bound "
+              f"{kernel_bound[name]['bound_ms']:.4f} ms "
+              f"({kernel_bound[name]['bound_by']})", flush=True)
     del cells
     torch.cuda.empty_cache()
 
@@ -595,6 +670,7 @@ def drive_multispace(tn, ek, device):
         "launches": launches,
         "kernel_max_abs_err": kernel_err,
         "kernel_ms": kernel_ms,
+        "kernel_bound": kernel_bound,
     }
 
 
@@ -607,14 +683,21 @@ def own_events(tn, words, plane, region):
 
 def drain_kernel_checks(tn, ek, slab, capacity, drain, device):
     """Each drain form against its plain version on the same inputs, at
-    one strip's slab of the first steady tick (inline budget ``drain``) and
-    at a small lattice slab whose events overflow LATTICE_DRAIN: words
-    bit-identical, pairs identical in [0, cap); times and bounds at the
-    strip slab."""
-    small_np = lattice_cells(2, 6, 5, seed=1)
-    small = (torch.tensor(small_np, device=device),
-             torch.tensor(lattice_plane(small_np, seed=2), device=device))
-    cases = ((small, LATTICE_DRAIN, LATTICE_CAPACITY, True),
+    one strip's slab of the first steady tick (inline budget ``drain``), at
+    a small lattice slab whose events overflow LATTICE_DRAIN, and at a
+    skip-edge slab with and without overflow: words bit-identical, pairs
+    identical in [0, cap); times and bounds at the strip slab."""
+    def small(make, seed, either_epoch):
+        cells = make(2, 6, 5, seed=seed)
+        plane = lattice_plane(cells, seed=2, either_epoch=either_epoch)
+        return (torch.tensor(cells, device=device),
+                torch.tensor(plane, device=device))
+
+    lattice = small(lattice_cells, 1, False)
+    edges = small(skip_edge_cells, 5, True)
+    cases = ((lattice, LATTICE_DRAIN, LATTICE_CAPACITY, True),
+             (edges, LATTICE_DRAIN, LATTICE_CAPACITY, True),
+             (edges, 1 << 20, LATTICE_CAPACITY, False),
              (slab, drain, capacity, False))
     ops = event_ops(ek, slab[0])
     rows = []
@@ -629,33 +712,28 @@ def drain_kernel_checks(tn, ek, slab, capacity, drain, device):
                       int((pairs[:, :cols] - want_p[:, :cols]).abs().max()))
             if err:
                 raise AssertionError(f"{name}: kernel differs from the plain "
-                                     f"version at {tuple(cells.shape)}")
+                                     f"version at {tuple(cells.shape)}, "
+                                     f"budget {d}")
             for r in range(2 if dual else 1):
                 if (own_events(tn, want_w, plane, r) > d) != overflows:
                     raise AssertionError(f"{name}: region {r} at "
                                          f"{tuple(cells.shape)} should "
                                          f"{'' if overflows else 'not '}"
-                                         f"overflow")
+                                         f"overflow {d}")
         cells, plane = slab
         words, pairs = ek.event_drain(cells, plane, dual, drain, capacity)
         ms = cuda_ms(lambda: ek.event_drain(cells, plane, dual, drain,
                                             capacity))
         plain_ms = cuda_ms(lambda: ek.event_drain_reference(
             cells, plane, dual, drain, capacity), 3)
-        bytes_moved = (cells.numel() + plane.numel() + words.numel()
-                       + pairs.numel()) * 4
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
         source, replaces = KERNELS["event_drain"]
         row = {
             "name": name, "form": "dual" if dual else "single",
             "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "bit_identical": True, "max_abs_err": 0,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            **event_bound(ek, ops, cells, plane, words, pairs),
             "library_ms": None,
-            "bytes": bytes_moved, "fp32_ops": ops,
             "events": [own_events(tn, words, plane, r)
                        for r in range(2 if dual else 1)],
         }
@@ -664,10 +742,11 @@ def drain_kernel_checks(tn, ek, slab, capacity, drain, device):
             row["skipped_ms"] = cuda_ms(lambda: ek.event_drain(
                 cells, plane, False, drain, capacity, skip=skip))
         rows.append(row)
-        print(f"kernel {name}: bit-identical at {tuple(small[0].shape)} "
-              f"(overflowing {LATTICE_DRAIN}) and {tuple(cells.shape)}; "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        print(f"kernel {name}: bit-identical at the lattice and skip-edge "
+              f"slabs {tuple(lattice[0].shape)} (overflowing "
+              f"{LATTICE_DRAIN}) and {tuple(cells.shape)}; {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
     return rows
 
 
@@ -1119,9 +1198,29 @@ def drive_boids(tb, bk, device):
     return result
 
 
+def ptxas_resources(log):
+    """Each kernel's ptxas resource lines from an ``nvcc -Xptxas -v`` log:
+    {function: "Used N registers, ...; S bytes stack frame, ..."}."""
+    found, name = {}, None
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            found[name] = []
+        elif name is not None and ("registers" in line or "spill" in line):
+            found[name].append(line.removeprefix("ptxas info    : "))
+    return {k: "; ".join(v) for k, v in found.items()}
+
+
+def spills(resources) -> bool:
+    """Whether a ptxas resource line reports bytes of spill."""
+    return re.search(r"\b[1-9]\d* bytes spill", resources) is not None
+
+
 def build_kernels(_build):
     """Every kernel source built at once, one nvcc each; prints each one's
-    build time and ptxas lines."""
+    build time and each kernel's ptxas resource line. The event kernel may
+    not spill."""
     def one(name):
         t0 = time.perf_counter()
         log = _build.build(name)
@@ -1131,9 +1230,10 @@ def build_kernels(_build):
         done = dict(zip(SOURCES, pool.map(one, SOURCES)))
     for name, (seconds, log) in done.items():
         print(f"build: {seconds:.1f} s for {KERNELS[name][0]}", flush=True)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {line.strip()}")
+        for fn, res in ptxas_resources(log).items():
+            print(f"  ptxas {fn}: {res}", flush=True)
+            if name == "event_kernel" and spills(res):
+                raise AssertionError(f"{fn} spills: {res}")
 
 
 def main() -> int:

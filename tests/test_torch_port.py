@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import lattice_cells, lattice_plane, seam_world
+from chip_smoke import (
+    lattice_cells, lattice_plane, seam_world, skip_edge_cells,
+)
 from goworld_tpu_torch.ops import boids as tb
 from goworld_tpu_torch.ops import boids_kernel as bk
 from goworld_tpu_torch.ops import event_kernel as ek
@@ -162,6 +164,26 @@ def test_cuda_drain_kernel_matches_plain_version(cuda, dual, drain):
     skip = torch.ones((), dtype=torch.bool, device=cuda)
     skipped = ek.event_drain(cells, plane, dual, drain, 8192, skip=skip)
     assert skipped[1].shape == want_p.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [False, True])
+def test_cuda_kernels_match_plain_version_at_skip_edges(cuda, dual):
+    """The mask and drain forms at cells whose empty query lanes and empty
+    candidate chunks the kernel skips (chip_smoke.skip_edge_cells)."""
+    cells_np = skip_edge_cells(2, 6, 5, seed=5)
+    cells = torch.tensor(cells_np, device=cuda)
+    plane = torch.tensor(lattice_plane(cells_np, seed=2, either_epoch=True),
+                         device=cuda)
+    got = ek.event_mask(cells, dual)
+    assert torch.equal(got, ek.event_mask_reference(cells, dual))
+    for drain in (100, 1 << 20):  # overflowing, not
+        words, pairs = ek.event_drain(cells, plane, dual, drain, 8192)
+        want_w, want_p = ek.event_drain_reference(cells, plane, dual, drain,
+                                                  8192)
+        cols = drain * (2 if dual else 1)
+        assert torch.equal(words, want_w)
+        assert torch.equal(pairs[:, :cols], want_p[:, :cols])
 
 
 def strip_engine_matches_single_device_engine(mesh, inkernel_drain):
