@@ -21,12 +21,13 @@ toolkit. It
    ticks of the 32-space shape (bench.py ``multispace_32``: 32 space slots,
    32x32 cells of 400);
 6. holds the boids kernel against its plain version at the cells of each
-   grid of bench.py's supercell sweep and at a small dense grid across the
-   torus seam, then drives the boids step as ``bench_boids_tuned`` does
-   (51,200 agents, radius 100, a 6,400-wide world: 15 steps at each cell
-   size, the drop-free winner at 60), holds three of the winner's steps
-   against the reference backend on the card and a 1,024-agent sample
-   against the float64 oracle;
+   grid of bench.py's supercell sweep, at a small dense grid across the
+   torus seam and at hand-built cells that exercise its skips
+   (``boids_skip_edge_cells``), then drives the boids step as
+   ``bench_boids_tuned`` does (51,200 agents, radius 100, a 6,400-wide
+   world: 15 steps at each cell size, the drop-free winner at 60), holds
+   three of the winner's steps against the reference backend on the card
+   and a 1,024-agent sample against the float64 oracle;
 7. drives the strip+halo sharded engine at BASELINE.json's config 5
    (``strips_1m``: 1,048,576 entity slots, 917,504 active, 8 grid-column
    strips on the one card, 128x128 cells of 300, radius 100, the
@@ -118,19 +119,21 @@ BOIDS_STEPS = 60
 BOIDS_ATOL = 1e-4
 BOIDS_POS_ATOL = 1e-3
 BOIDS_ORACLE_TOL = 2e-3
-# FP32 operations of the boids kernel, from csrc/boids_kernel.cu, with an
-# IEEE division counted as one. Per pair of an occupied query and another
-# occupied candidate: 2 subtractions, then for the minimal image 2 divisions,
-# 2 rints, 2 multiplications and 2 subtractions, then 2 multiplications and
-# an addition for d2 and its comparison with r2. Per pair in range: 5
-# additions (the count and four sums) and the comparison with sep_r2. Per
-# close pair: 3 additions, a division and 2 multiplications. Per occupied
-# query, after the loop: 33.
-OPS_PER_PAIR = 14
+# FP32 operations the boids kernel's function needs. Per pair of an occupied
+# query and another occupied candidate: 2 subtractions, 2 multiplications
+# and an addition for d2, and its comparison with r2; and per axis on which
+# the pair lies more than half the world apart, the minimal image's
+# division (counted as one), rint, multiplication and subtraction. Per pair
+# in range: 5 additions (the count and four sums) and the comparison with
+# sep_r2. Per close pair: 3 additions, a division and 2 multiplications.
+# Per occupied query, after the loop: 33. (An earlier count charged the
+# image to every pair, 14 operations a pair; PERF.md gives both bounds.)
+OPS_PER_PAIR = 6
+OPS_PER_IMAGE = 4
 OPS_PER_NEIGHBOR = 6
 OPS_PER_CLOSE = 6
 OPS_PER_QUERY = 33
-# Feature rows of a cell that the boids kernel loads (x, z, vx, vz, valid).
+# Feature rows of a cell in boids_five_row_bytes (x, z, vx, vz, valid).
 BOIDS_ROWS_READ = 5
 
 
@@ -972,29 +975,126 @@ def boids_cells(tb, p, world, device):
     return tb._build_cells(p, pos, vel, active)[0]
 
 
+# ``boids_skip_edge_cells``'s configuration. Two columns make the x-world
+# 256 wide, so |dx| = wx/2 = r, and the image across the x seam decides
+# whether a pair in range adds +128 or -127.99999 to its sums. Both worlds
+# are powers of two, so dividing by one is exact scaling: XLA lowers the
+# Pallas body's division by a constant to a multiplication by its
+# reciprocal, which elsewhere moves the image one float above w/2
+# (tests/test_torch_boids_skips.py).
+BOIDS_SKIP_EDGE = dict(capacity=2048, cell_size=128.0, grid_x=2, grid_z=8,
+                       radius=128.0)
+
+
+def boids_skip_edge_cells(seed=0):
+    """Boids-kernel input f32[10, 4, 8, 128] (BOIDS_SKIP_EDGE: 8x2 cells of
+    128, radius 128) built by hand, not by ``_build_cells``, to test a
+    kernel that walks only occupied candidates, shares lanes across a sparse
+    cell's queries and divides by the world size only across the seam.
+    Agents sit on integer coordinates in their own cell, at lanes that are
+    not a prefix: cell (0, 0) holds one near z = 0 whose only neighbors
+    lie across the z seam in row 7, with (0, 1) and row 1 empty; (7, 1)
+    holds only lane 127; (2, 1) only lanes 31 and 32; (2, 0) and (6, 1) are
+    full; (6, 0) is empty; the rest hold random lanes at 10-80%. Row 3
+    holds pairs at d2 == r2 ((128, 0) and (0, 128) apart), at (60, 80),
+    inside sep_frac * r, and queries at x = 0 whose candidates lie at
+    x = 128 (|dx| = wx/2) and one float above; (4, 0) holds two coincident
+    agents. Empty lanes hold finite garbage in x, z, vx and vz and a valid
+    row of 0, -0 or -1. The halo ring wraps."""
+    rng = np.random.default_rng(seed)
+    gz, gx = BOIDS_SKIP_EDGE["grid_z"], BOIDS_SKIP_EDGE["grid_x"]
+    cs = BOIDS_SKIP_EDGE["cell_size"]
+    core = np.zeros((gz, gx, 8, 128), np.float32)
+    core[:, :, :4] = rng.uniform(-1e4, 1e4, (gz, gx, 4, 128))  # garbage
+    core[:, :, 4] = rng.choice(np.float32([0.0, -0.0, -1.0]), (gz, gx, 128))
+    core[:, :, 5:] = rng.uniform(-1e4, 1e4, (gz, gx, 3, 128))
+    free = {(i, j): list(rng.permutation(128)) for i in range(gz)
+            for j in range(gx)}
+
+    def put(x, z, lane=None):
+        i, j = int(z // cs), int(x // cs)
+        lane = free[i, j].pop() if lane is None else lane
+        if lane in free[i, j]:
+            free[i, j].remove(lane)
+        core[i, j, :5, lane] = (x, z, *rng.normal(0, 3.0, 2), 1.0)
+
+    def fill(i, j, n, z_lo=0, z_hi=cs):
+        for _ in range(n):
+            put(j * cs + rng.integers(0, cs),
+                i * cs + rng.integers(z_lo, z_hi))
+
+    put(rng.integers(20, 100), rng.integers(0, 20))  # neighbors: row 7 only
+    fill(7, 0, 6, cs - 18, cs)
+    put(cs + rng.integers(0, cs), 8 * cs - rng.integers(1, 10), lane=127)
+    put(cs + 40, 2 * cs + 50, lane=31)
+    put(cs + 43, 2 * cs + 54, lane=32)
+    fill(2, 0, 128)
+    fill(6, 1, 128)
+    z3 = 3 * cs + 16
+    for x, z in [(10, z3), (70, z3 + 80), (10 + cs, z3), (10, z3 + cs),
+                 (15, z3 + 4), (18, z3)]:
+        put(x, z)  # from the first: (60, 80), (128, 0), (0, 128), ...
+    put(50, 4 * cs + 50)
+    put(50, 4 * cs + 50)  # coincident
+    for z in (z3 + 30, z3 + 60):
+        put(0.0, z)
+        put(cs, z)  # dx = wx/2 exactly
+        put(np.nextafter(np.float32(cs), np.float32(2 * cs)), z)
+    for i, j in [(3, 0), (3, 1), (4, 0), (4, 1), (5, 0), (5, 1), (7, 0)]:
+        n = 128 - len(free[i, j])
+        fill(i, j, max(0, int(rng.uniform(0.1, 0.8) * 128) - n))
+    zi = np.arange(-1, gz + 1) % gz
+    xi = np.arange(-1, gx + 1) % gx
+    return np.ascontiguousarray(core[zi][:, xi])
+
+
 def boids_work(bk, p, cells):
-    """(bytes, FP32 operations) that these cells need: the five rows the
-    kernel reads (x, z, vx, vz, valid; the 3 spare rows are never loaded) of
-    every cell, halo ring included, read once, and the accelerations written
-    once; the kernel's operations on the pairs of occupied lanes, counted
-    from the data."""
+    """(bytes, FP32 operations) that these cells need: the valid row of
+    every cell, halo ring included, and x, z, vx and vz of each occupied
+    lane (16 B), read once, and the accelerations written once; the
+    operations on the pairs of occupied lanes (OPS_PER_*), counted from the
+    data. (boids_five_row_bytes gives the earlier count of bytes.)"""
     gz, gx = cells.shape[0] - 2, cells.shape[1] - 2
-    sep_r2 = bk.step_constants(p)[3]
-    pairs = neighbors = close = queries = 0
+    wx, wz, _, sep_r2 = bk.step_constants(p)[:4]
+    pairs = images = neighbors = close = queries = 0
     for start in range(0, gz * gx, 64):
         idx = torch.arange(start, min(start + 64, gz * gx),
                            device=cells.device)
         q, cand, _, _, d2, nb = bk.halo_pairs(cells, idx, p)
-        q_ok = (q[:, 4] > 0).sum(1)
-        c_ok = (cand[:, 4] > 0).sum(1)
-        pairs += int((q_ok * c_ok - q_ok).sum())  # not the query itself
+        q_ok = q[:, 4] > 0
+        c_ok = cand[:, 4] > 0
+        pairs += int((q_ok.sum(1) * c_ok.sum(1) - q_ok.sum(1)).sum())
+        both = q_ok[:, :, None] & c_ok[:, None, :]  # self pairs cross nothing
+        for f, w in ((0, wx), (1, wz)):
+            apart = (cand[:, f][:, None, :] - q[:, f][:, :, None]).abs()
+            images += int((both & (apart > w / 2)).sum())
         queries += int(q_ok.sum())
         neighbors += int(nb.sum())
         close += int((nb & (d2 < sep_r2)).sum())
-    ops = (OPS_PER_PAIR * pairs + OPS_PER_NEIGHBOR * neighbors
-           + OPS_PER_CLOSE * close + OPS_PER_QUERY * queries)
-    rows_read = BOIDS_ROWS_READ * (gz + 2) * (gx + 2) * 128 * 4
-    return rows_read + gz * gx * 2 * 128 * 4, ops
+    ops = (OPS_PER_PAIR * pairs + OPS_PER_IMAGE * images
+           + OPS_PER_NEIGHBOR * neighbors + OPS_PER_CLOSE * close
+           + OPS_PER_QUERY * queries)
+    occupied = int((cells[..., 4, :] > 0).sum())
+    needed = (gz + 2) * (gx + 2) * 128 * 4 + occupied * 4 * 4
+    return needed + gz * gx * 2 * 128 * 4, ops
+
+
+def boids_five_row_bytes(cells) -> int:
+    """The bytes counted for the boids kernel before the count followed the
+    occupied lanes: the five used rows (x, z, vx, vz, valid) of every cell,
+    halo ring included, and the accelerations."""
+    gz, gx = cells.shape[0] - 2, cells.shape[1] - 2
+    return (BOIDS_ROWS_READ * (gz + 2) * (gx + 2) * 128 * 4
+            + gz * gx * 2 * 128 * 4)
+
+
+def boids_read_bytes(cells) -> int:
+    """Bytes of the cells the kernel loads, each cell counted once (nine
+    CTAs read it, mostly from L2): every valid row, and x, z, vx and vz
+    only in the 32-byte sectors (8 lanes) that hold an occupied lane."""
+    occupied = (cells[..., 4, :] > 0).reshape(*cells.shape[:2], 16, 8)
+    sectors = int(occupied.any(-1).sum())
+    return cells.shape[0] * cells.shape[1] * 128 * 4 + sectors * 4 * 32
 
 
 def hold_boids(bk, p, cells, what) -> float:
@@ -1020,6 +1120,14 @@ def boids_kernel_checks(tb, bk, device):
                                                  device), "seam 8x8")
     print(f"kernel boids: seam grid 8x8, max abs err {seam_err:.3g}",
           flush=True)
+    edge = tb.BoidsParams(**BOIDS_SKIP_EDGE)
+    edge_cells = torch.tensor(boids_skip_edge_cells(), device=device)
+    edge_err = hold_boids(bk, edge, edge_cells, "skip edge")
+    edge_ms = cuda_ms(lambda: bk.boids_accel(edge_cells, edge))
+    edge_plain = cuda_ms(lambda: bk.boids_accel_reference(edge_cells, edge), 3)
+    print(f"kernel boids: skip-edge cells, max abs err {edge_err:.3g}; "
+          f"{edge_ms:.4f} ms, plain {edge_plain:.3f} ms", flush=True)
+    seam_err = max(seam_err, edge_err)
     by_grid = {}
     for cell in BOIDS_CELL_SWEEP:
         p = boids_params(tb, cell)
@@ -1035,12 +1143,16 @@ def boids_kernel_checks(tb, bk, device):
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "bytes": bytes_moved, "fp32_ops": ops,
+            "bytes": bytes_moved, "bytes_read": boids_read_bytes(cells),
+            "bytes_five_rows": boids_five_row_bytes(cells), "fp32_ops": ops,
         }
         print(f"kernel boids: grid {p.grid_x} (cell {cell:g}), max abs err "
               f"{err:.3g}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
               f"{by_grid[p.grid_x]['bound_ms']:.4f} ms "
-              f"({by_grid[p.grid_x]['bound_by']})", flush=True)
+              f"({by_grid[p.grid_x]['bound_by']}; {bytes_moved} bytes "
+              f"needed, {by_grid[p.grid_x]['bytes_read']} of the cells "
+              f"read, {by_grid[p.grid_x]['bytes_five_rows']} in the "
+              f"five-row count)", flush=True)
         del cells
     torch.cuda.empty_cache()
     return by_grid
@@ -1213,14 +1325,16 @@ def ptxas_resources(log):
 
 
 def spills(resources) -> bool:
-    """Whether a ptxas resource line reports bytes of spill."""
-    return re.search(r"\b[1-9]\d* bytes spill", resources) is not None
+    """Whether a ptxas resource line reports bytes of spill or of stack
+    frame."""
+    return re.search(r"\b[1-9]\d* bytes (spill|stack frame)",
+                     resources) is not None
 
 
 def build_kernels(_build):
     """Every kernel source built at once, one nvcc each; prints each one's
-    build time and each kernel's ptxas resource line. The event kernel may
-    not spill."""
+    build time and each kernel's ptxas resource line. No kernel may spill
+    or keep a stack frame."""
     def one(name):
         t0 = time.perf_counter()
         log = _build.build(name)
@@ -1232,7 +1346,7 @@ def build_kernels(_build):
         print(f"build: {seconds:.1f} s for {KERNELS[name][0]}", flush=True)
         for fn, res in ptxas_resources(log).items():
             print(f"  ptxas {fn}: {res}", flush=True)
-            if name == "event_kernel" and spills(res):
+            if spills(res):
                 raise AssertionError(f"{fn} spills: {res}")
 
 

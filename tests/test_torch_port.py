@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    lattice_cells, lattice_plane, seam_world, skip_edge_cells,
+    BOIDS_SKIP_EDGE, boids_skip_edge_cells, lattice_cells, lattice_plane,
+    seam_world, skip_edge_cells,
 )
 from goworld_tpu_torch.ops import boids as tb
 from goworld_tpu_torch.ops import boids_kernel as bk
@@ -122,6 +123,7 @@ BOIDS_CASES = {
     "seam_cluster": dict(capacity=512, cell_size=100.0, grid_x=8, grid_z=8),
     "supercells": dict(capacity=512, cell_size=250.0, grid_x=4, grid_z=4,
                        radius=100.0),
+    "skip_edge": BOIDS_SKIP_EDGE,  # the kernel at boids_skip_edge_cells
 }
 
 
@@ -130,7 +132,10 @@ BOIDS_CASES = {
 def test_cuda_boids_kernel_matches_plain_version(cuda, case):
     p = tb.BoidsParams(**BOIDS_CASES[case])
     world = [torch.tensor(a, device=cuda) for a in seam_world(p)]
-    cells, _ = tb._build_cells(p, *world)
+    if case == "skip_edge":
+        cells = torch.tensor(boids_skip_edge_cells(), device=cuda)
+    else:
+        cells, _ = tb._build_cells(p, *world)
     before = bk.launches["boids"]
     got = bk.boids_accel(cells, p)
     assert bk.launches["boids"] == before + 1
