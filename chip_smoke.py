@@ -87,6 +87,27 @@ STRIPS_ACTIVE = 917504
 STRIPS_N = 8
 STRIPS_PIPELINED = 20
 STRIPS_SYNC = 10
+# BASELINE.json's config 2 ("examples/test_game synthetic: 10k random-walk
+# entities, 1 Space, TPUAOIManager on 1 chip") through the port's entity
+# runtime and batched AOI service: 10,240 columnar avatars drifting at
+# N(0, 3) units a tick (bench.py bench_fused's drift program over Column
+# attrs vx, vz) in one space, AOI distance 100 (examples/test_game), 14x14
+# cells of 300 (the headline's density at a tenth of its entities), [sync]
+# cadence tiers (1, 4, 16), fused delivery on; run with [aoi] fuse_logic
+# off, then on, each 3 warm ticks, 60 pipelined ticks and a flush, on a
+# fixed clock of one second a tick. 1% of the avatars log out (are
+# destroyed) before pipelined tick 45: a slow tick. The space is an entity too, with a slab
+# slot of its own: the slots are the avatars' count and 8 more.
+SERVICE_ENTITIES = 10240
+SERVICE = dict(capacity=SERVICE_ENTITIES + 8, cell_size=300.0, grid_x=14,
+               grid_z=14, space_slots=1, cell_capacity=128,
+               max_events=131072)
+SERVICE_RADIUS = 100.0
+SERVICE_TIERS = (1, 4, 16)
+SERVICE_WARM = 3
+SERVICE_TICKS = 60
+SERVICE_DT = 1.0
+SERVICE_LOGOUT_TICK = SERVICE_WARM + 45
 # The drain forms' small check: the lattice grid's slot/own plane, and an
 # inline budget its events overflow.
 LATTICE_CAPACITY = 8192
@@ -1310,6 +1331,331 @@ def drive_boids(tb, bk, device):
     return result
 
 
+class FixedClock:
+    """The service's and the runtime's clock in ``drive_service``: both runs
+    read the same times, so the fused and the unfused programs see the same
+    dt sequence."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+
+def interest_pairs(pos, active, space, radius, device):
+    """Every (watcher, other) slot pair of the epoch by brute force on the
+    card, with the engine's predicate (same space, dx*dx + dz*dz <= r*r of
+    the watcher, not itself), as sorted int64 keys watcher * n + other."""
+    n = len(pos)
+    p = torch.tensor(pos, device=device)
+    a = torch.tensor(active, device=device)
+    s = torch.tensor(space, device=device)
+    r = torch.tensor(radius, device=device)
+    keys = []
+    for lo in range(0, n, 1024):
+        q = torch.arange(lo, min(n, lo + 1024), device=device)
+        dx = p[None, :, 0] - p[q, 0][:, None]
+        dz = p[None, :, 1] - p[q, 1][:, None]
+        d2 = dx * dx + dz * dz
+        hit = (a[q][:, None] & a[None, :] & (s[q][:, None] == s[None, :])
+               & (d2 <= (r[q] * r[q])[:, None]))
+        hit[torch.arange(len(q), device=device), q] = False
+        w, o = torch.nonzero(hit, as_tuple=True)
+        keys.append(((w + lo) * n + o).cpu().numpy())
+    return np.sort(np.concatenate(keys))
+
+
+def service_world(em, tn, device, fuse):
+    """The service_10k world (see SERVICE) built through the port's
+    runtime: returns (runtime, service, avatars, their class, the fixed
+    clock, the spawn seconds). The service is the runtime's default, on
+    the card; on another ``device`` only to rehearse."""
+    from goworld_tpu_torch.entity.columns import columnar_tick
+    from goworld_tpu_torch.entity.entity import Entity
+    from goworld_tpu_torch.entity.slabs import SyncTuning
+    from goworld_tpu_torch.entity.space import Space
+    from goworld_tpu_torch.entity.vector import Vector3
+
+    def drift(x, y, z, yaw, dt, vx, vz):
+        return x + vx * dt, y, z + vz * dt, yaw + 10.0 * dt, vx, vz
+
+    class ServiceSpace(Space):
+        def on_space_created(self):
+            if self.kind == 1:
+                self.enable_aoi(SERVICE_RADIUS)
+
+    class Walker(Entity):
+        on_tick_batch = columnar_tick(drift, ("vx", "vz"))
+
+        @classmethod
+        def describe_entity_type(cls, desc):
+            desc.set_use_aoi(True, SERVICE_RADIUS)
+            desc.define_attr("vx", "Column")
+            desc.define_attr("vz", "Column")
+
+    em.cleanup_for_tests()
+    rt = em.runtime
+    rt.aoi_backend = "batched"
+    rt.aoi_device = None if device.type == "cuda" else str(device)
+    rt.aoi_fuse_logic = fuse
+    rt.aoi_params = tn.NeighborParams(**SERVICE)
+    rt.slabs.configure_sync(SyncTuning(tier_cadences=SERVICE_TIERS))
+    em.register_space(ServiceSpace)
+    em.register_entity(Walker)
+    svc = rt.get_aoi_service()
+    if svc.device.type != device.type:
+        raise AssertionError(f"the runtime's service is on {svc.device}")
+    svc.warmup()  # game boot, before the first login
+    world = SERVICE["grid_x"] * SERVICE["cell_size"]
+    rng = np.random.default_rng(0)
+    xz = rng.uniform(0, world, (SERVICE_ENTITIES, 2))
+    vel = rng.normal(0, 3.0, (SERVICE_ENTITIES, 2))
+    t0 = time.perf_counter()
+    space = em.create_space_locally(1)
+    ents = []
+    for i in range(SERVICE_ENTITIES):
+        e = em.create_entity_locally(
+            "Walker", space=space,
+            pos=Vector3(float(xz[i, 0]), 0.0, float(xz[i, 1])))
+        e.attrs["vx"] = float(vel[i, 0])
+        e.attrs["vz"] = float(vel[i, 1])
+        ents.append(e)
+    spawn_s = time.perf_counter() - t0
+    if svc._prewarm_thread is not None:
+        svc._prewarm_thread.join()
+    eng = svc.engine
+    want_backend = "kernel" if device.type == "cuda" else eng.backend
+    if eng.backend != want_backend or eng.params.capacity != SERVICE[
+            "capacity"]:
+        raise AssertionError(f"service engine {eng.backend} at "
+                             f"{eng.params.capacity} slots")
+    # The unfused hook's first dt is now - the class's registration time,
+    # the fused step's first dt is 0: the clock starts at the registration.
+    clock = FixedClock(rt.slabs._tick_buckets[Walker].last_tick)
+    rt.now = clock
+    svc.clock = clock
+    return rt, svc, ents, Walker, clock, spawn_s
+
+
+def service_tick(rt, svc, clock):
+    """One game-loop tick of the runtime (timers, host tick programs, the
+    AOI service); the clock then moves on by SERVICE_DT. Returns the
+    delivered (enters, leaves) and the entity logic's host seconds."""
+    t = time.perf_counter()
+    rt.timer_service.tick()
+    rt.slabs.run_tick_batches(rt.now())
+    t_logic = time.perf_counter() - t
+    out = svc.tick()
+    clock.t += SERVICE_DT
+    return out, t_logic
+
+
+def run_service(em, tn, ek, device, fuse):
+    """One run of the service_10k drive through the port's runtime (see
+    SERVICE): returns its metrics, its final slab state and the last
+    dispatched epoch."""
+    from goworld_tpu_torch.entity.aoi import batched
+    from goworld_tpu_torch.entity.slabs import classify_tiers
+    from goworld_tpu_torch.utils import opmon
+
+    rt, svc, ents, Walker, clock, spawn_s = service_world(em, tn, device,
+                                                          fuse)
+    n = SERVICE["capacity"]
+    eng = svc.engine
+
+    # Capture each dispatch's epoch, tiers payload and pending step.
+    fasts, captured = [], {}
+    step_async = eng.step_async
+
+    def spy(pos, active, space, radius, **kw):
+        pending = step_async(pos, active, space, radius, **kw)
+        fasts.append(pending.fast)
+        k = len(fasts)
+        if k in (SERVICE_WARM + 29, SERVICE_WARM + 30):
+            captured[k] = (np.array(pos), np.array(radius),
+                           kw.get("tiers"), pending.tiers)
+        return pending
+
+    eng.step_async = spy
+    phase = {"dispatch": 0.0, "deliver": 0.0}
+
+    def timed(name, fn):
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                phase[name] += time.perf_counter() - t
+        return run
+
+    svc._dispatch = timed("dispatch", svc._dispatch)
+    svc._deliver = timed("deliver", svc._deliver)
+    delivery = batched._M_HOST_PHASE.labels("delivery")
+    applied = batched._M_FUSED_DELIVERY_EVENTS.labels("applied")
+    dropped = batched._M_FUSED_DELIVERY_EVENTS.labels("dropped")
+    applied0, dropped0 = applied.value, dropped.value
+    hook = Walker.on_tick_batch.__func__
+    landed = []
+    apply_tiers = rt.slabs.apply_device_tiers
+
+    def count_landed(*args):
+        landed.append(apply_tiers(*args))
+        return landed[-1]
+
+    rt.slabs.apply_device_tiers = count_landed
+
+    torch.cuda.synchronize()
+    ek.reset_launch_counts()
+    counts, ticks = [], []
+    t_loop = 0.0
+    for k in range(SERVICE_WARM + SERVICE_TICKS):
+        if k == SERVICE_LOGOUT_TICK:
+            for e in ents[::100]:
+                e.destroy()
+        d0, v0 = dict(phase), delivery.value
+        t = time.perf_counter()
+        out, t_logic = service_tick(rt, svc, clock)
+        counts.append(out)
+        t_tick = time.perf_counter() - t
+        if k >= SERVICE_WARM:
+            t_loop += t_tick
+            deliver = phase["deliver"] - d0["deliver"]
+            host_delivery = delivery.value - v0
+            ticks.append((t_tick, t_logic, phase["dispatch"] - d0["dispatch"],
+                          deliver - host_delivery, host_delivery))
+    counts.append(svc.flush())
+    torch.cuda.synchronize()
+    launches = dict(ek.launches)
+    dispatches = len(fasts)
+
+    # Interest sets at the flush checkpoint: every entity's interested_in
+    # against brute force over the last dispatched epoch.
+    ents = [e for e in ents if not e.is_destroyed()]
+    epoch = eng.carried_epoch()
+    want = interest_pairs(*epoch, device)
+    got = np.sort(np.fromiter(
+        (e._slot * n + o._slot for e in ents for o in e.interested_in),
+        np.int64))
+    if not np.array_equal(got, want):
+        raise AssertionError(f"service_10k fuse={fuse}: interest sets "
+                             f"({len(got)} pairs) differ from brute force "
+                             f"({len(want)} pairs)")
+    # The device tier vector of a steady tick against classify_tiers on the
+    # same snapshot, with that tick's and the previous dispatched epochs.
+    k = SERVICE_WARM + 30
+    prev_pos = captured[k - 1][0]
+    pos, radius, payload, tiers = captured[k]
+    if payload is None or tiers is None or payload[4] is None:
+        raise AssertionError(f"service_10k: tick {k} carried no tier pass")
+    ne = payload[1]
+    subj, wat = payload[2][:ne], payload[3][:ne]
+    d = pos[subj] - pos[wat]
+    pd = prev_pos[subj] - prev_pos[wat]
+    host_tiers = classify_tiers(
+        (d * d).sum(axis=1), radius[wat], *payload[4],
+        (pd * pd).sum(axis=1).astype(np.float32))
+    dev_tiers = np.asarray(tiers[2])[:ne]
+    if not np.array_equal(dev_tiers, host_tiers):
+        raise AssertionError(f"service_10k: device tiers differ from "
+                             f"classify_tiers at {int((dev_tiers != host_tiers).sum())} "
+                             f"of {ne} edges")
+    if fuse and hook.jit_cache_size():
+        raise AssertionError("service_10k: the fused class's host hook ran")
+
+    fast = [bool(f) for f in fasts]
+    loop = np.asarray(ticks)
+    events = np.asarray(counts, np.int64)
+    n_edges = rt.slabs.edge_count()
+    tier_hist = np.bincount(rt.slabs._e_tier[:n_edges],
+                            minlength=len(SERVICE_TIERS))
+    tag = f"service_10k fuse_logic={'on' if fuse else 'off'}"
+    print(f"{tag}: interest sets of {len(want)} pairs equal brute force at "
+          f"the flush; device tiers of tick {k} equal classify_tiers over "
+          f"{ne} edges", flush=True)
+    metrics = {
+        "fuse_logic": fuse,
+        "entities": SERVICE_ENTITIES,
+        "spawn_s": spawn_s,
+        "ticks_per_sec": SERVICE_TICKS / t_loop,
+        "aoi_entity_updates_per_sec": (
+            SERVICE_TICKS / t_loop * SERVICE_ENTITIES),
+        "tick_p50_ms": pct(loop[:, 0], 50),
+        "tick_p99_ms": pct(loop[:, 0], 99),
+        "entity_logic_p50_ms": pct(loop[:, 1], 50),
+        "entity_logic_p99_ms": pct(loop[:, 1], 99),
+        "dispatch_p50_ms": pct(loop[:, 2], 50),
+        "dispatch_p99_ms": pct(loop[:, 2], 99),
+        "collect_p50_ms": pct(loop[:, 3], 50),
+        "collect_p99_ms": pct(loop[:, 3], 99),
+        "delivery_p50_ms": pct(loop[:, 4], 50),
+        "delivery_p99_ms": pct(loop[:, 4], 99),
+        "storm_enters": int(events[1, 0]),
+        "enters_delivered": int(events[:, 0].sum()),
+        "leaves_delivered": int(events[:, 1].sum()),
+        "events_per_steady_tick": float(
+            events[SERVICE_WARM:-1].sum() / SERVICE_TICKS),
+        "paged_ticks": int((events > SERVICE["max_events"]).any(1).sum()),
+        "edges": n_edges,
+        "tier_histogram": tier_hist.tolist(),
+        "device_tier_vectors_landed": int(sum(landed)),
+        "device_tier_vectors_discarded": len(landed) - int(sum(landed)),
+        "fused_delivery_applied_rows": int(applied.value - applied0),
+        "fused_delivery_dropped_rows": int(dropped.value - dropped0),
+        "dispatches": dispatches,
+        "slow_ticks": fast.count(False),
+        "launches": launches,
+        "launches_per_tick": {f: launches[f] / dispatches
+                              for f in ek.FORMS},
+        "aoi_drain_p99_ms": opmon.dump().get(
+            "aoi.drain", {}).get("p99", 0.0) * 1e3,
+    }
+    slots = [e._slot for e in ents]
+    final = (rt.slabs.xz[slots].copy(), rt.slabs.y[slots].copy(),
+             rt.slabs.yaw[slots].copy(),
+             rt.slabs.columns["vx"][slots].copy(),
+             rt.slabs.columns["vz"][slots].copy())
+    em.cleanup_for_tests()
+    return metrics, final, epoch
+
+
+def drive_service(tn, ek, device):
+    """service_10k: the port's main path from ``BatchAOIService.tick``, with
+    [aoi] fuse_logic off and then on (see SERVICE). Holds the interest sets
+    at each flush against brute force, the device tiers against
+    classify_tiers, and the fused run's final positions and columns bit for
+    bit against the unfused run's; then holds both mask forms against their
+    plain version at the service's cells. Returns the metrics and the
+    forms' rows for the kernel line."""
+    from goworld_tpu_torch.entity import entity_manager as em
+
+    runs = {}
+    finals = {}
+    for fuse in (False, True):
+        runs[fuse], finals[fuse], epoch = run_service(em, tn, ek, device, fuse)
+        print(json.dumps({"service_10k_run": runs[fuse]}), flush=True)
+    names = ("positions", "y", "yaw", "vx", "vz")
+    for name, a, b in zip(names, finals[False], finals[True]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"service_10k: fused {name} differ from the "
+                                 f"unfused run's")
+    print("service_10k: the fused run's positions and columns are "
+          "bit-identical to the unfused run's", flush=True)
+    for fuse in (False, True):
+        if runs[fuse]["slow_ticks"] < 1:
+            raise AssertionError("service_10k: no slow tick ran")
+    # Both mask forms at the service's cells (the fused run's last epoch
+    # against a step of the walk).
+    p = tn.NeighborParams(**SERVICE)
+    pos = epoch[0]
+    ppos = (pos - np.float32(SERVICE_DT)).astype(np.float32)
+    rows = kernel_checks(tn, ek, p, pos, ppos, epoch[2], device)
+    metrics = {"config": SERVICE, "radius": SERVICE_RADIUS,
+               "tiers": SERVICE_TIERS, "unfused": runs[False],
+               "fused": runs[True]}
+    return metrics, rows
+
+
 def ptxas_resources(log):
     """Each kernel's ptxas resource lines from an ``nvcc -Xptxas -v`` log:
     {function: "Used N registers, ...; S bytes stack frame, ..."}."""
@@ -1393,6 +1739,17 @@ def main() -> int:
     })
     strips, drain_rows = drive_strips(tn, ek, ts, make_mesh, device)
     print(json.dumps({"strips_1m": strips}), flush=True)
+    service, service_rows = drive_service(tn, ek, device)
+    print(json.dumps({"service_10k": service}), flush=True)
+    for row, srow in zip(kernels, service_rows):  # the mask forms
+        run = service["fused"]
+        row["service_10k"] = {
+            "launches": run["launches"][row["name"]],
+            "launches_per_tick": run["launches_per_tick"][row["name"]],
+            **{k: srow[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "max_abs_err")},
+        }
+        row["max_abs_err"] = max(row["max_abs_err"], srow["max_abs_err"])
     kernels[2:2] = drain_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)

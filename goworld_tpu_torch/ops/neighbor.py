@@ -23,6 +23,11 @@ Backends (the JAX engine's names in brackets):
   rank-select drain (``_step_pallas``, ``_drain_bits``). On a CUDA device the
   kernel is the hand-written CUDA one; on the CPU its plain version runs.
 
+Passes that ride the step (``step_async(logic=, tiers=)``): the fused
+entity programs, the ``[sync]`` cadence tier pass and the fused-delivery
+edge verdicts, plain torch on the step's device, in the JAX module's output
+order (``_step_packed_tiered``).
+
 The private functions keep the JAX module's names, so each has an obvious
 counterpart there. Every tensor is made on the engine's device, and
 ``step_async`` never waits on the device: the fast/slow choice of the JAX
@@ -669,6 +674,163 @@ def _step_pallas(
     return enter_ctx, leave_ctx, out, next_grid, fast
 
 
+# --- fused entity logic ------------------------------------------------------
+#
+# [aoi] fuse_logic: per-class pure tick programs (entity/columns.columnar_tick)
+# ride the same dispatch as the AOI step. The fused step computes exactly
+# what the plain step computes; it additionally applies each program
+# elementwise to the dispatched (pos, y, yaw, columns) and returns the
+# results as extra outputs, which the service writes back just before the
+# NEXT dispatch (entity/aoi/batched.py _consume_fused). The unfused host
+# hook (columns.columnar_tick) calls the same ``_fused_program_apply``, so
+# both trajectories come from the same arithmetic.
+
+
+def _fused_program_apply(prog, x, y, z, yaw, dt, cols):
+    """One program over every row (masking is the caller's): ``prog.fn``
+    is elementwise, so it runs on the row tensors as they are (the JAX
+    module vmaps it). Outputs come back as tensors of the rows' shape."""
+    outs = prog.fn(x, y, z, yaw, dt, *cols)
+    return tuple(
+        torch.as_tensor(o, device=x.device).expand(x.shape) for o in outs
+    )
+
+
+def _apply_fused_logic(programs, pos, y, yaw, sel, dt, cols):
+    """Apply each fused program to its rows (``sel == k+1``; 0 = no
+    program). ``cols`` is the flat per-program concatenation of column
+    tensors. Returns (new_pos [N,2], new_y, new_yaw, new_cols tuple)."""
+    x = pos[:, 0]
+    z = pos[:, 1]
+    new = [x, y, z, yaw]
+    out_cols = list(cols)
+    off = 0
+    for k, prog in enumerate(programs):
+        nc = len(prog.columns)
+        pc = tuple(cols[off + i] for i in range(nc))
+        outs = _fused_program_apply(prog, x, y, z, yaw, dt, pc)
+        m = sel == k + 1
+        for i in range(4):
+            new[i] = torch.where(m, outs[i].to(new[i].dtype), new[i])
+        for i in range(nc):
+            base = out_cols[off + i]
+            out_cols[off + i] = torch.where(m, outs[4 + i].to(base.dtype),
+                                            base)
+        off += nc
+    new_pos = torch.stack([new[0], new[2]], dim=1)
+    return new_pos, new[1], new[3], tuple(out_cols)
+
+
+# The (params, backend, programs) variants a fused step ran or warmed, the
+# counterpart of the JAX module's per-variant jit cache
+# (``fused_trace_count``). PyTorch compiles nothing, so the set only records
+# which variants have been run.
+_FUSED_VARIANTS: set = set()
+
+
+# --- sync cadence tier pass ([sync]; rides the step dispatch) ---------------
+#
+# Each (subject, watcher) interest pair is classified into a sync cadence
+# tier by distance and approach rate in one batched sweep over the edge
+# list, in the same dispatch as the AOI step. The formula mirrors
+# entity/slabs.classify_tiers, the host fallback.
+
+
+def _tier_pass(pos, ppos, radius, subj, wat, n_tiers: int,
+               near_ratio: float, far_ratio: float):
+    """uint8[Ecap] tier per padded edge: subj/wat are int32 slot ids with
+    sentinel >= capacity on pad rows (tier 0 there: full rate is the
+    conservative default). Distance uses the CURRENT epoch; a pair whose
+    distance shrank since the PREVIOUS epoch is approaching and drops one
+    tier toward full rate. Every constant is a float32 tensor, as the JAX
+    pass's weakly typed Python floats are: the arithmetic stays float32 and
+    a division is a true division on every device."""
+    n = pos.shape[0]
+    dev = pos.device
+    valid = (subj >= 0) & (subj < n) & (wat >= 0) & (wat < n)
+    s = torch.clamp(subj, 0, n - 1).long()
+    w = torch.clamp(wat, 0, n - 1).long()
+    d = pos[s] - pos[w]
+    d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+    pd = ppos[s] - ppos[w]
+    pd2 = pd[:, 0] * pd[:, 0] + pd[:, 1] * pd[:, 1]
+    r = radius[w]
+    r2 = torch.maximum(r * r, _f32(1e-12, dev))
+    ratio = torch.sqrt(d2 / r2)
+    near = _f32(near_ratio, dev)
+    span = _f32(max(far_ratio - near_ratio, 1e-9), dev)
+    steps = _f32(n_tiers - 1, dev)
+    tier = 1 + torch.floor((ratio - near) / span * steps).to(torch.int32)
+    tier = torch.clamp(tier, 0, n_tiers - 1)
+    tier = torch.where(ratio <= near, 0, tier)
+    tier = torch.where(d2 < pd2, torch.clamp(tier - 1, min=0), tier)
+    return torch.where(valid, tier, 0).to(torch.uint8)
+
+
+def _edge_verdicts(p: NeighborParams, out, subj, wat):
+    """uint8[2*max_events]: per INLINE event row of the packed ``out``,
+    1 = the event is a real edge-state change against the dispatched edge
+    snapshot (an enter whose (subj, wat) edge is absent / a leave whose
+    edge is present), 0 = a no-op the idempotent interest guards would
+    swallow. The host decode applies verdict-1 rows through a bulk edge
+    update and drops verdict-0 rows (aoi/batched.py _deliver_fused).
+
+    Keys are ``subj * (capacity+1) + wat`` in int32, so the caller must
+    guarantee ``(capacity+1)**2 < 2**31`` (the batched service gates on
+    this). Pad rows of the edge snapshot carry the slot sentinel
+    ``capacity`` on both sides: their key is the maximum, so real keys
+    never collide with them."""
+    e = p.max_events
+    n1 = p.capacity + 1
+    keys = torch.sort(subj.to(torch.int32) * n1
+                      + wat.to(torch.int32)).values
+    rows = out[3:3 + 2 * e]
+    # Event pairs are (watcher, other); the edge table keys
+    # (subject=other, watcher) — see Entity._edge_update.
+    k = rows[:, 1] * n1 + rows[:, 0]
+    idx = torch.clamp(torch.searchsorted(keys, k), 0, keys.shape[0] - 1)
+    present = keys[idx] == k
+    return torch.cat([~present[:e], present[e:]]).to(torch.uint8)
+
+
+def _step_packed_tiered(p: NeighborParams, backend: str, programs,
+                        tier_cfg, verdicts: bool, subj, wat, state, cur,
+                        extra):
+    """The step (plain or fused) with the edge-snapshot passes attached,
+    in the JAX module's output order (``_jitted_step_packed_tiered``): the
+    step's outputs, then the tier vector when ``tier_cfg`` is a
+    (n_tiers, near, far) tuple, then the verdict vector when ``verdicts``.
+    The step's outputs are (enter_ids, leave_ids, out, fast) on the
+    reference backend and (enter_ctx, leave_ctx, out, next_grid, fast) on
+    the kernel backend, followed by the fused outputs when ``programs``."""
+    if backend == "reference":
+        outs = _step_packed_jnp(p, *state, *cur)
+    else:
+        outs = _step_pallas(p, *state, *cur)
+    if programs is not None:
+        y, yaw, sel, dt, *cols = extra
+        new_pos, new_y, new_yaw, new_cols = _apply_fused_logic(
+            programs, cur[0], y, yaw, sel, dt, cols)
+        outs = outs + ((new_pos, new_y, new_yaw) + new_cols,)
+    if tier_cfg is not None:
+        n_tiers, near_ratio, far_ratio = tier_cfg
+        outs = outs + (_tier_pass(cur[0], state[0], cur[3], subj, wat,
+                                  n_tiers, near_ratio, far_ratio),)
+    if verdicts:
+        outs = outs + (_edge_verdicts(p, outs[2], subj, wat),)
+    return outs
+
+
+def tier_edge_capacity(n_edges: int) -> int:
+    """Padded edge-array size for ``n_edges`` live edges: power-of-two
+    tiers from 256, so the padded shapes change only on capacity growth
+    (a handful of times over a process's life), never per edge churn."""
+    cap = 256
+    while cap < n_edges:
+        cap *= 2
+    return cap
+
+
 # --- host-facing engine ------------------------------------------------------
 
 
@@ -682,10 +844,20 @@ class PendingStep:
 
     ``fast`` is the step's guard as a device bool (True: the leave mask came
     from the single dual-form launch); reading it waits for the device.
+
+    The payloads of the passes that rode the step are queued to the host
+    behind the packed result, and ``np.asarray`` of each waits for its own
+    copy only: ``fused`` = (programs, sel, row→slot perm or None, fused
+    outputs), consumed by the service's ``_consume_fused`` before the next
+    dispatch; ``tiers`` = (edge_version, edge count, tier vector);
+    ``verdicts`` = the edge-verdict vector, with ``edge_log`` the edge delta
+    log that was live when its snapshot was taken (batched.py
+    ``_deliver_fused``).
     """
 
     __slots__ = ("_engine", "_pager", "_host", "_done", "_copied",
-                 "_collected", "fast")
+                 "_collected", "fast", "fused", "tiers", "verdicts",
+                 "edge_log")
 
     def __init__(self, engine: NeighborEngine, pager, out: torch.Tensor,
                  fast: torch.Tensor) -> None:
@@ -694,6 +866,10 @@ class PendingStep:
         self._collected = False
         self.fast = fast
         self._host, self._done, self._copied = start_host_copy(out)
+        self.fused = None
+        self.tiers = None
+        self.verdicts = None
+        self.edge_log = None
 
     def is_ready(self) -> bool:
         """True when collect() will not block on device compute."""
@@ -797,9 +973,13 @@ class NeighborEngine:
     def reset(self) -> None:
         """Clear device state: the next step sees an all-inactive previous
         tick and emits the full enter storm."""
+        self._state = self._zero_state()
+
+    def _zero_state(self) -> tuple:
+        """The state of an all-inactive previous tick."""
         n = self.params.capacity
         dev = self.device
-        self._state = (
+        state = (
             torch.zeros((n, 2), dtype=torch.float32, device=dev),
             torch.zeros(n, dtype=torch.bool, device=dev),
             torch.zeros(n, dtype=torch.int32, device=dev),
@@ -810,7 +990,7 @@ class NeighborEngine:
             # all-dropped dst; bins and order are irrelevant then.
             table_size = self.params.num_buckets * LANES
             i32 = dict(dtype=torch.int32, device=dev)
-            self._state += (
+            state += (
                 torch.zeros(n, **i32),  # pcx
                 torch.zeros(n, **i32),  # pcz
                 torch.zeros(n, **i32),  # psm
@@ -819,6 +999,7 @@ class NeighborEngine:
                 torch.arange(n, **i32),  # porder
                 torch.full((n,), table_size, **i32),  # pdst
             )
+        return state
 
     def load_state(self, arrays: tuple[np.ndarray, ...]) -> None:
         """Take over another engine's state: the previous epoch (pos,
@@ -872,6 +1053,12 @@ class NeighborEngine:
                 start = start + take if rank_paging else aux[take - 1] + 1
         return np.concatenate(chunks)
 
+    # The batched service may hand this engine a fused-logic payload
+    # (aoi/batched.py _build_logic) and ride the [sync] cadence tier pass
+    # and the edge-verdict pass on the step (``tiers=``).
+    supports_fused_logic = True
+    supports_tier_pass = True
+
     def step_async(
         self,
         pos: np.ndarray,
@@ -879,6 +1066,8 @@ class NeighborEngine:
         space: np.ndarray,
         radius: np.ndarray,
         meta_dirty: bool = True,
+        logic: tuple | None = None,
+        tiers: tuple | None = None,
     ) -> PendingStep:
         """Dispatch one tick without blocking; collect() fetches the events.
 
@@ -888,7 +1077,21 @@ class NeighborEngine:
 
         ``meta_dirty=False`` asserts that active/space/radius are unchanged
         since the previous step: the device-resident copies are reused and
-        only positions are uploaded."""
+        only positions are uploaded.
+
+        ``logic = (programs, sel, y, yaw, dt, cols)`` fuses the per-class
+        entity-logic programs into the same dispatch: the AOI diff is
+        computed exactly as without logic, and the programs' outputs over
+        the dispatched epoch ride back on ``pending.fused``. ``sel`` is
+        int32[capacity] (program index + 1, 0 = none), ``cols`` the flat
+        per-program column arrays.
+
+        ``tiers = (edge_version, n_edges, subj_pad, wat_pad,
+        (n_tiers, near_ratio, far_ratio)[, want_verdicts])`` rides the
+        [sync] cadence tier pass and/or the edge-verdict pass on the same
+        dispatch (``pending.tiers``, ``pending.verdicts``). A 5-tuple is
+        the tiers-only payload; the 6-tuple may set the tier config to None
+        for a verdicts-only dispatch."""
         if self._state is None:
             raise RuntimeError("call reset() first")
         n = self.params.capacity
@@ -911,26 +1114,127 @@ class NeighborEngine:
             meta = self._state[1:4]
         cur = (self._upload(pos, np.float32),) + meta
 
+        programs = None
+        extra: tuple = ()
+        if logic is not None:
+            programs, sel, y, yaw, dt, cols = logic
+            programs = tuple(programs)
+            extra = self._logic_inputs(sel, y, yaw, dt, cols)
+        tcfg = None
+        want_verdicts = False
+        subj = wat = None
+        if tiers is not None:
+            if len(tiers) == 5:
+                t_ver, t_n, subj_pad, wat_pad, tcfg = tiers
+            else:
+                t_ver, t_n, subj_pad, wat_pad, tcfg, want_verdicts = tiers
+            if tcfg is not None:
+                tcfg = tuple(tcfg)
+            subj = self._upload(subj_pad, np.int32)
+            wat = self._upload(wat_pad, np.int32)
+        outs = _step_packed_tiered(
+            self.params, self.backend, programs, tcfg, want_verdicts,
+            subj, wat, self._state, cur, extra)
+        verdict_out = tier_out = fused_out = None
+        if want_verdicts:
+            verdict_out, outs = outs[-1], outs[:-1]
+        if tcfg is not None:
+            tier_out, outs = outs[-1], outs[:-1]
+        if programs is not None:
+            fused_out, outs = outs[-1], outs[:-1]
+
         if self.backend == "reference":
-            enter_ids, leave_ids, out, fast = _step_packed_jnp(
-                self.params, *self._state, *cur
-            )
+            enter_ids, leave_ids, out, fast = outs
             self._state = cur
 
             def pager(which, remaining, start):
                 ids = enter_ids if which == "enter" else leave_ids
                 return self._page((ids,), remaining, start)
         else:
-            enter_ctx, leave_ctx, out, next_grid, fast = _step_pallas(
-                self.params, *self._state, *cur
-            )
+            enter_ctx, leave_ctx, out, next_grid, fast = outs
             self._state = cur + next_grid
 
             def pager(which, remaining, start):
                 ctx = enter_ctx if which == "enter" else leave_ctx
                 return self._page(ctx, remaining, start)
 
-        return PendingStep(self, pager, out, fast)
+        pending = PendingStep(self, pager, out, fast)
+        # The extra outputs' copies queue behind the packed result's.
+        if fused_out is not None:
+            _FUSED_VARIANTS.add((self.params, self.backend, programs))
+            pending.fused = (programs, np.asarray(logic[1]), None,
+                             tuple(HostArray(a) for a in fused_out))
+        if tier_out is not None:
+            pending.tiers = (t_ver, t_n, HostArray(tier_out))
+        if verdict_out is not None:
+            pending.verdicts = HostArray(verdict_out)
+        return pending
+
+    def _logic_inputs(self, sel, y, yaw, dt, cols) -> tuple:
+        """The fused programs' inputs on the device: (y, yaw, sel, dt,
+        *cols), dt a float32 scalar tensor, each column in its own dtype."""
+        return (
+            self._upload(y, np.float32),
+            self._upload(yaw, np.float32),
+            self._upload(sel, np.int32),
+            _f32(dt, self.device),
+        ) + tuple(self._upload(c, np.asarray(c).dtype.type) for c in cols)
+
+    def _warm_variant(self, programs, col_dtypes, tier_cfg, edge_cap,
+                      verdicts: bool) -> None:
+        """One all-zero step of a variant at full capacity, on a state of
+        its own: engine state is untouched."""
+        n = self.params.capacity
+        state = self._zero_state()
+        extra: tuple = ()
+        if programs:
+            programs = tuple(programs)
+            extra = self._logic_inputs(
+                np.zeros(n, np.int32), np.zeros(n, np.float32),
+                np.zeros(n, np.float32), 0.0,
+                tuple(np.zeros(n, np.dtype(d)) for d in col_dtypes))
+            _FUSED_VARIANTS.add((self.params, self.backend, programs))
+        else:
+            programs = None
+        subj = wat = None
+        if edge_cap:
+            subj = torch.full((edge_cap,), n, dtype=torch.int32,
+                              device=self.device)
+            wat = subj
+        outs = _step_packed_tiered(
+            self.params, self.backend, programs, tier_cfg, verdicts,
+            subj, wat, state, state[0:4], extra)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        del outs
+
+    def warmup_fused(self, programs: tuple, col_dtypes: tuple) -> None:
+        """Run the fused step for ``programs`` once, WITHOUT touching engine
+        state: an all-zero step at full capacity. PyTorch compiles nothing;
+        the service calls this at boot, after a restore and before a
+        capacity jump, as the JAX engine's compile warmup.
+        ``col_dtypes`` are the flat per-program column dtypes."""
+        self._warm_variant(tuple(programs), col_dtypes, None, 0, False)
+
+    def warmup_tiered(self, programs: tuple | None, col_dtypes: tuple,
+                      tier_cfg: tuple | None, edge_cap: int,
+                      verdicts: bool = False) -> None:
+        """Run the tiered step (plain or fused variant) once at full
+        capacity and ``edge_cap`` padded edges, WITHOUT touching engine
+        state: the warmup_fused analog for the [sync] tier pass and the
+        edge verdicts."""
+        self._warm_variant(
+            programs, col_dtypes,
+            tuple(tier_cfg) if tier_cfg is not None else None,
+            edge_cap, verdicts)
+
+    def fused_trace_count(self, programs: tuple) -> int:
+        """1 once a fused step for ``programs`` has run or been warmed at
+        this engine's params and backend, else 0: the counterpart of the
+        JAX engine's compiled-trace count. The one-launch gate asserts it
+        stays at 1 across steady ticks and across a restore."""
+        key = (self.params, self.backend, tuple(programs))
+        return int(key in _FUSED_VARIANTS)
 
     def step(
         self,
@@ -945,7 +1249,9 @@ class NeighborEngine:
 
 _TORCH_DTYPE = {
     np.float32: torch.float32,
+    np.float64: torch.float64,
     np.int32: torch.int32,
+    np.int64: torch.int64,
     np.bool_: torch.bool,
 }
 
@@ -972,11 +1278,40 @@ def start_host_copy(out: torch.Tensor):
     stream = torch.cuda.current_stream(out.device)
     done = torch.cuda.Event()
     done.record(stream)
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out, non_blocking=True)
+    host, copied = _copy_to_pinned(out, stream)
+    return host, done, copied
+
+
+def _copy_to_pinned(t: torch.Tensor, stream):
+    """Queue ``t``'s copy into a pinned host buffer on ``stream``; returns
+    (host tensor, event recorded after the copy)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
     copied = torch.cuda.Event()
     copied.record(stream)
-    return host, done, copied
+    return host, copied
+
+
+class HostArray:
+    """A device tensor's copy to the host, queued at once without waiting
+    on the device; ``np.asarray`` of it waits for that copy only. On the CPU
+    it holds the tensor itself."""
+
+    __slots__ = ("_host", "_copied")
+
+    def __init__(self, t: torch.Tensor) -> None:
+        if t.device.type == "cuda":
+            self._host, self._copied = _copy_to_pinned(
+                t, torch.cuda.current_stream(t.device))
+        else:
+            self._host, self._copied = t, None
+
+    def __array__(self, dtype=None, copy=None):
+        if self._copied is not None:
+            self._copied.synchronize()
+            self._copied = None
+        a = self._host.numpy()
+        return a if dtype is None else a.astype(dtype, copy=False)
 
 
 def check_space_ids(space: np.ndarray, active: np.ndarray) -> None:

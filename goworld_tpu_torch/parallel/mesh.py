@@ -9,7 +9,8 @@ device-side tensor movement: ``all_gather`` is a concatenation of every
 shard's rows onto each shard's device, with no host round trip.
 
 Ported: ``make_mesh``, the all-gather program ``_sharded_step`` (the strip
-tier's exact fallback), ``_sharded_drain`` and ``ShardedPendingStep``.
+tier's exact fallback) and its fused-logic variant ``_sharded_step_fused``,
+``_sharded_drain`` and ``ShardedPendingStep``.
 ``ShardedNeighborEngine`` and the kernel slab ``_sharded_step_pallas`` come
 in a later slice.
 """
@@ -21,6 +22,7 @@ import torch
 
 from goworld_tpu_torch.ops.neighbor import (
     NeighborParams,
+    _apply_fused_logic,
     _bins,
     _build_table,
     _drain_ids,
@@ -187,6 +189,45 @@ def _sharded_step(
     return enter_ids, leave_ids, outs
 
 
+def _fused_rows(programs, mesh: list[torch.device], pos_l, y_l, yaw_l,
+                sel_l, dt_l, cols_l):
+    """The fused entity logic on every shard's LOCAL rows (elementwise, so
+    no rows travel), joined on the first shard's device in ROW order:
+    (new_pos [N, 2], new_y, new_yaw, *new_cols). ``cols_l`` holds one list
+    over the shards per column; ``dt_l`` one float32 scalar per shard."""
+    parts = []
+    for d in range(len(mesh)):
+        new_pos, new_y, new_yaw, new_cols = _apply_fused_logic(
+            programs, pos_l[d], y_l[d], yaw_l[d], sel_l[d], dt_l[d],
+            tuple(c[d] for c in cols_l))
+        parts.append((new_pos, new_y, new_yaw) + new_cols)
+    dev0 = mesh[0]
+    return tuple(torch.cat([part[i].to(dev0) for part in parts])
+                 for i in range(len(parts[0])))
+
+
+def _sharded_step_fused(
+    p: NeighborParams, events_inline: int, mesh: list[torch.device],
+    programs,
+    ppos_l, pact_l, pspc_l, prad_l,
+    pos_l, act_l, spc_l, rad_l,
+    y_l, yaw_l, sel_l, dt_l, *cols_l,
+):
+    """The all-gather step plus fused entity logic on each shard's LOCAL
+    rows. The spatial engine's exact-fallback ticks use it, so a teleport
+    or overflow tick still advances the fused programs; the outputs are in
+    ROW space, mapped back through the dispatch-time perm snapshot by the
+    caller."""
+    enter_ids, leave_ids, outs = _sharded_step(
+        p, events_inline, mesh,
+        ppos_l, pact_l, pspc_l, prad_l,
+        pos_l, act_l, spc_l, rad_l,
+    )
+    fused = _fused_rows(programs, mesh, pos_l, y_l, yaw_l, sel_l, dt_l,
+                        cols_l)
+    return enter_ids, leave_ids, outs, fused
+
+
 def _sharded_drain(
     p: NeighborParams, events_inline: int, chunk: int, shard: int,
     ids_l: torch.Tensor,  # [chunk, 9M] this shard's event-id matrix
@@ -209,7 +250,7 @@ class ShardedPendingStep:
 
     __slots__ = ("_engine", "_enter_ctx", "_leave_ctx", "_host", "_done",
                  "_copied", "_collected", "rank_paging", "full_repage",
-                 "paged")
+                 "paged", "fused")
 
     def __init__(self, engine, enter_ctx, leave_ctx, outs: list) -> None:
         self._engine = engine
@@ -227,6 +268,9 @@ class ShardedPendingStep:
         # After collect(): the (shard, side) pairs paged past the inline
         # block.
         self.paged = 0
+        # Fused-logic payload (programs, sel, row→slot perm snapshot, row-
+        # space outputs), set by the strip engine's step_async.
+        self.fused = None
         dev0 = outs[0].device
         out = torch.cat([o.to(dev0) for o in outs])
         self._host, self._done, self._copied = start_host_copy(out)

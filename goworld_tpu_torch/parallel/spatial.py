@@ -33,8 +33,12 @@ owner; cell-capacity drops break ties by SLOT id
 (``ops.neighbor.sorted_ranks_by``), so a seam cell's surviving set is the
 same on every strip holding a copy, and the single-device engine's.
 
-Not ported yet: the jnp strip backend, the fused-logic variants, the
-fallback prewarm thread and the telemetry counters of the JAX engine.
+Fused entity logic (``logic=``, the service's ``[aoi] fuse_logic``) runs
+each program on the strips' local rows, in the row-permuted layout, on the
+strip tick and on the fallback tick alike.
+
+Not ported yet: the jnp strip backend, the fallback prewarm thread and the
+telemetry counters of the JAX engine.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from goworld_tpu_torch.ops.event_kernel import event_drain, event_mask
 from goworld_tpu_torch.ops.neighbor import (
     LANES,
     _PACK,
+    _FUSED_VARIANTS,
+    HostArray,
     NeighborParams,
     _bins,
     _drain_bits,
@@ -59,8 +65,10 @@ from goworld_tpu_torch.ops.neighbor import (
 )
 from goworld_tpu_torch.parallel.mesh import (
     ShardedPendingStep,
+    _fused_rows,
     _sharded_drain,
     _sharded_step,
+    _sharded_step_fused,
     all_gather,
     shard_rows,
 )
@@ -389,6 +397,38 @@ def _spatial_step_pallas_impl(
         for d in range(n_dev)
     ]
     return enter_ctx, leave_ctx, outs
+
+
+def _spatial_step_pallas_fused_impl(
+    p: NeighborParams,
+    events_inline: int,
+    halo_cap: int,
+    cols_cap: int,
+    drain_inline: int,
+    mesh: list[torch.device],
+    programs,
+    ppos_l, pact_l, pspc_l, prad_l,
+    pos_l, act_l, spc_l, rad_l,
+    slot_l,
+    send_lo_idx,
+    send_hi_idx,
+    strip_lo: list[int],
+    y_l, yaw_l, sel_l, dt_l, *cols_l,
+):
+    """The strip step plus fused entity logic on each strip's LOCAL rows:
+    the same logic contract as the fallback's ``_sharded_step_fused``
+    (row-permuted inputs, perm-snapshot writeback). Returns the strip
+    step's (enter_ctx, leave_ctx, out) and the fused outputs in ROW order
+    on the first strip's device."""
+    res = _spatial_step_pallas_impl(
+        p, events_inline, halo_cap, cols_cap, drain_inline, mesh,
+        ppos_l, pact_l, pspc_l, prad_l,
+        pos_l, act_l, spc_l, rad_l,
+        slot_l, send_lo_idx, send_hi_idx, strip_lo,
+    )
+    fused = _fused_rows(programs, mesh, pos_l, y_l, yaw_l, sel_l, dt_l,
+                        cols_l)
+    return res + (fused,)
 
 
 def _spatial_drain_bits(
@@ -744,11 +784,18 @@ class SpatialShardedNeighborEngine:
         space: np.ndarray,
         radius: np.ndarray,
         meta_dirty: bool = True,
+        logic: tuple | None = None,
     ) -> ShardedPendingStep:
         """Dispatch one tick without waiting on the device; collect() fetches
         the events. ``meta_dirty=False`` asserts active/space/radius are
         unchanged since the previous step (reused unless the row layout
-        changed)."""
+        changed).
+
+        ``logic = (programs, sel, y, yaw, dt, cols)`` (slot space, as
+        ``NeighborEngine.step_async`` takes it) runs the fused programs in
+        the same dispatch on the row-permuted layout; ``pending.fused``
+        carries the outputs in ROW space with the perm snapshot that maps
+        them back to slots."""
         if self._state is None:
             raise RuntimeError("call reset() first")
         check_radius(self.params, radius, active)
@@ -858,13 +905,37 @@ class SpatialShardedNeighborEngine:
             meta = self._state[1:4]
         cur_dev = (put(cur[0][perm], np.float32),) + meta
 
+        fused_out = None
+        logic_dev: tuple = ()
+        if logic is not None:
+            # Row-permuted upload of the fused-logic inputs: the programs
+            # run per LOCAL row, so sel/y/yaw/columns travel through the
+            # same perm as the positions; dt is one scalar per strip.
+            programs, sel, y, yaw, dt, cols = logic
+            programs = tuple(programs)
+            logic_dev = (
+                put(np.asarray(y, np.float32)[perm], np.float32),
+                put(np.asarray(yaw, np.float32)[perm], np.float32),
+                put(np.asarray(sel, np.int32)[perm], np.int32),
+                [_f32(dt, dev) for dev in self.mesh],
+            ) + tuple(put(np.asarray(c)[perm], np.asarray(c).dtype.type)
+                      for c in cols)
+
         if fallback_reason is None:
-            enter_ctx, leave_ctx, outs = _spatial_step_pallas_impl(
+            strip_args = (
                 p, self.events_inline, self.halo_cap, self.strip_cols,
-                self.drain_inline, self.mesh, *self._state, *cur_dev,
+                self.drain_inline, self.mesh)
+            band_args = (
                 self._perm_dev, put(send_lo, np.int32),
-                put(send_hi, np.int32), list(self.boundaries[:-1]),
-            )
+                put(send_hi, np.int32), list(self.boundaries[:-1]))
+            if logic is not None:
+                enter_ctx, leave_ctx, outs, fused_out = (
+                    _spatial_step_pallas_fused_impl(
+                        *strip_args, programs, *self._state, *cur_dev,
+                        *band_args, *logic_dev))
+            else:
+                enter_ctx, leave_ctx, outs = _spatial_step_pallas_impl(
+                    *strip_args, *self._state, *cur_dev, *band_args)
             self.last_mode = "spatial"
             pending = ShardedPendingStep(
                 self, ("pallas", enter_ctx, self._perm_dev),
@@ -873,9 +944,14 @@ class SpatialShardedNeighborEngine:
             pending.rank_paging = True
             pending.full_repage = self.drain_inline > 0
         else:
-            enter_ids, leave_ids, outs = _sharded_step(
-                p, self.events_inline, self.mesh, *self._state, *cur_dev
-            )
+            if logic is not None:
+                enter_ids, leave_ids, outs, fused_out = _sharded_step_fused(
+                    p, self.events_inline, self.mesh, programs,
+                    *self._state, *cur_dev, *logic_dev)
+            else:
+                enter_ids, leave_ids, outs = _sharded_step(
+                    p, self.events_inline, self.mesh, *self._state,
+                    *cur_dev)
             self.last_mode = f"fallback:{fallback_reason}"
             self.total_fallbacks += 1
             pending = _FallbackPendingStep(
@@ -885,10 +961,66 @@ class SpatialShardedNeighborEngine:
             # The all-gather program's cursors are flat matrix indices.
             pending.rank_paging = False
 
+        if fused_out is not None:
+            _FUSED_VARIANTS.add((p, "strips", programs))
+            # Outputs are in ROW space: the perm SNAPSHOT maps row→slot at
+            # writeback time, immune to later migrations and re-plans.
+            pending.fused = (programs, np.asarray(logic[1]), perm.copy(),
+                             tuple(HostArray(a) for a in fused_out))
+
         self._state = cur_dev
         self._host_prev = cur
         self._prev_cx = cx
         return pending
+
+    # Fused entity logic is supported: per-row elementwise programs ride
+    # the strip dispatch in row-permuted layout.
+    supports_fused_logic = True
+
+    def warmup_fused(self, programs: tuple, col_dtypes: tuple) -> None:
+        """Run both fused programs (strip tick and exact fallback) for this
+        program set once, at full capacity on all-zero inputs, WITHOUT
+        touching engine state: the strip analog of
+        ``NeighborEngine.warmup_fused``."""
+        p = self.params
+        n = p.capacity
+        put = self._put
+        zeros = (
+            put(np.zeros((n, 2), np.float32), np.float32),
+            put(np.zeros(n, bool), np.bool_),
+            put(np.zeros(n, np.int32), np.int32),
+            put(np.zeros(n, np.float32), np.float32),
+        )
+        logic_dev = (
+            put(np.zeros(n, np.float32), np.float32),
+            put(np.zeros(n, np.float32), np.float32),
+            put(np.zeros(n, np.int32), np.int32),
+            [_f32(0.0, dev) for dev in self.mesh],
+        ) + tuple(put(np.zeros(n, np.dtype(d)), np.dtype(d).type)
+                  for d in col_dtypes)
+        programs = tuple(programs)
+        empty_band = put(np.full(self.n_devices * self.halo_cap, self.chunk,
+                                 np.int32), np.int32)
+        strip_lo = [round(i * p.grid_x / self.n_devices)
+                    for i in range(self.n_devices)]
+        _spatial_step_pallas_fused_impl(
+            p, self.events_inline, self.halo_cap, self.strip_cols,
+            self.drain_inline, self.mesh, programs, *zeros, *zeros,
+            put(np.arange(n, dtype=np.int32), np.int32), empty_band,
+            empty_band, strip_lo, *logic_dev)
+        _sharded_step_fused(p, self.events_inline, self.mesh, programs,
+                            *zeros, *zeros, *logic_dev)
+        for dev in dict.fromkeys(self.mesh):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        _FUSED_VARIANTS.add((p, "strips", programs))
+
+    def fused_trace_count(self, programs: tuple) -> int:
+        """1 once a fused strip step for ``programs`` has run or been warmed
+        at these params, else 0 (the JAX engine's trace count of its fused
+        strip jit; see ``NeighborEngine.fused_trace_count``)."""
+        return int((self.params, "strips", tuple(programs))
+                   in _FUSED_VARIANTS)
 
     def _note_step_flags(self, flags: int) -> None:
         """Header-flag hook (ShardedPendingStep.collect): bit 0 = the
