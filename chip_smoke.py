@@ -38,7 +38,24 @@ toolkit. It
    single-device engine on the card and a 1,024-entity sample against
    brute force; holds both drain forms against their plain version at one
    strip's slab and at a lattice slab whose events overflow the inline
-   budget, and times them.
+   budget, and times them;
+8. drives ``service_10k``: the port's runtime and batched AOI service at
+   10,240 avatars (BASELINE.json config 2), fused logic off then on;
+9. ``cluster_ci``: the reference's CI deployment (.travis.yml, the
+   3 dispatchers x 3 games x 3 gates of ``tests/test_stress.py``'s
+   ``TRAVIS_INI``, compression and TLS on) started by the port's CLI
+   (``python -m goworld_tpu_torch.cli start
+   goworld_tpu_torch.examples.test_game``) with every game's batched AOI
+   service on the card, 200 strict bots of the port's fleet for 30 s, a
+   live ``reload`` (freeze -> restore), 200 strict bots for 30 s again and
+   a stop; zero errors, every game's log naming the card and every game's
+   ``/metrics`` counting AOI steps on the card and launches of both mask
+   forms (the wrapper's own counts) in both runs. Before the cluster
+   starts, both mask forms are held against their plain version and timed
+   at the games' own cells (``params_from_config`` of the default
+   ``[aoi]``: 16,384 slots, 32x32 cells of 100, 4 space slots, cell
+   capacity 64, with 1,024 entities in 64 spaces). It also runs
+   ``graft_entry.entry()`` once on the card against the reference step.
 
 The kernels are built first, all at once. It prints bench.py's metrics, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -113,6 +130,87 @@ SERVICE_LOGOUT_TICK = SERVICE_WARM + 45
 LATTICE_CAPACITY = 8192
 LATTICE_DRAIN = 500
 
+# cluster_ci: the reference CI's deployment (.travis.yml:22-34 on
+# goworld_travis.ini's shape, tests/test_stress.py TRAVIS_INI): 3
+# dispatchers, 3 games, 3 gates, compression and TLS on, the batched AOI
+# service on the card in every game ([aoi] backend = tpu, platform = auto,
+# max_entities at its default), each game's debug HTTP on for /metrics and
+# /opmon. Cut: 300 s -> 30 s a fleet run (TLS is cut too where the host
+# has no openssl).
+CLUSTER_SERVER = "goworld_tpu_torch.examples.test_game"
+CLUSTER_BOTS = 200
+CLUSTER_RUN_S = 30.0
+CLUSTER_PLATFORM = "auto"
+CLUSTER_INI = """\
+[deployment]
+dispatchers = 3
+games = 3
+gates = 3
+
+[dispatcher_common]
+
+[dispatcher1]
+port = {disp1}
+
+[dispatcher2]
+port = {disp2}
+
+[dispatcher3]
+port = {disp3}
+
+[game_common]
+boot_entity = Account
+save_interval = 600
+
+[game1]
+http_addr = 127.0.0.1:{http1}
+
+[game2]
+http_addr = 127.0.0.1:{http2}
+
+[game3]
+http_addr = 127.0.0.1:{http3}
+
+[gate_common]
+heartbeat_timeout = 60
+compress_connection = true
+{tls}
+[gate1]
+port = {gate1}
+
+[gate2]
+port = {gate2}
+
+[gate3]
+port = {gate3}
+
+[storage]
+type = filesystem
+directory = {dir}/es
+
+[kvdb]
+type = sqlite
+directory = {dir}/kv
+
+[aoi]
+backend = tpu
+platform = {platform}
+"""
+# The event kernel at the games' own cells: the engine params the games
+# take from [aoi] at its defaults (params_from_config: 16,384 slots, 32x32
+# cells of 100, 4 space slots, cell capacity 64), holding more entities
+# than the busiest game did in this phase's runs (980 at its peak, PR 7),
+# in 64 spaces, at test_game's positions (integers in [-400, 400]) and AOI
+# distance (100), a walk of up to 20 units a tick between the epochs.
+CLUSTER_AOI_ENTITIES = 1024
+CLUSTER_AOI_SPACES = 64
+CLUSTER_AOI_HALF = 400
+CLUSTER_AOI_STEP = 20.0
+CLUSTER_TLS = """encrypt_connection = true
+rsa_key = {dir}/rsa.key
+rsa_cert = {dir}/rsa.crt
+"""
+
 # Each kernel's source, and the TPU kernel it replaces.
 KERNELS = {
     "event_kernel": ("goworld_tpu_torch/ops/csrc/event_kernel.cu",
@@ -122,8 +220,6 @@ KERNELS = {
     "boids_kernel": ("goworld_tpu_torch/ops/csrc/boids_kernel.cu",
                      "goworld_tpu/ops/boids.py:140"),
 }
-# The CUDA sources, each built by one nvcc.
-SOURCES = ("event_kernel", "boids_kernel")
 SAMPLE = 1024
 
 # bench.py's boids_50k (bench_boids / bench_boids_tuned): the agents, the
@@ -303,15 +399,17 @@ def skip_edge_cells(slots, rows, cols, seed):
     return np.ascontiguousarray(cells[:, zi][:, :, xi])
 
 
-def steady_cells(tn, p, pos, ppos, space, device):
+def steady_cells(tn, p, pos, ppos, space, device, active=None):
     """The current grid's cells of a steady tick, built by the engine's own
-    binning, table and scatter (as _step_pallas builds them)."""
+    binning, table and scatter (as _step_pallas builds them); ``active``
+    defaults to every slot."""
     n = p.capacity
     pos_t = torch.tensor(pos, device=device)
     ppos_t = torch.tensor(ppos, device=device)
     space = torch.tensor(space, device=device)
     radius = torch.full((n,), 100.0, device=device)
-    active = torch.ones(n, dtype=torch.bool, device=device)
+    active = (torch.ones(n, dtype=torch.bool, device=device) if active is None
+              else torch.tensor(active, device=device))
     cx, cz, sm = tn._bins(p, pos_t, space)
     bucket = (sm * p.grid_z + cz) * p.grid_x + cx
     _, slot, _, order, dst = tn._build_table(p, bucket, active, tn.LANES)
@@ -350,10 +448,11 @@ def event_bound(ek, ops, *tensors):
     }
 
 
-def hold_kernel(ek, cells, dual) -> int:
+def hold_kernel(ek, cells, dual, skip=None) -> int:
     """One form's words against its plain version on the same cells; the
-    largest difference of a word, which must be 0."""
-    got = ek.event_mask(cells, dual)
+    largest difference of a word, which must be 0. ``skip`` is passed to
+    the kernel only (a false one, as a slow tick's leave launch gets)."""
+    got = ek.event_mask(cells, dual, skip=skip)
     want = ek.event_mask_reference(cells, dual)
     err = int((got - want).abs().max())  # words are 0..65535
     if err:
@@ -363,10 +462,12 @@ def hold_kernel(ek, cells, dual) -> int:
     return err
 
 
-def kernel_checks(tn, ek, p, pos, ppos, space, device):
-    """Each form against its plain version, at the headline cells, a small
-    lattice grid and a skip-edge grid; times at the headline cells."""
-    head = steady_cells(tn, p, pos, ppos, space, device)
+def kernel_checks(tn, ek, p, pos, ppos, space, device, active=None):
+    """Each form against its plain version, at the given tick's cells, a
+    small lattice grid and a skip-edge grid, the single form also with a
+    false skip flag; times at the tick's cells, and the single form's
+    launch with a true skip flag."""
+    head = steady_cells(tn, p, pos, ppos, space, device, active)
     small = [torch.tensor(lattice_cells(2, 6, 5, seed=1), device=device),
              torch.tensor(skip_edge_cells(2, 6, 5, seed=5), device=device)]
     ops = event_ops(ek, head)
@@ -375,6 +476,8 @@ def kernel_checks(tn, ek, p, pos, ppos, space, device):
     for dual in (False, True):
         name = ek.FORMS[int(dual)]
         err = max(hold_kernel(ek, cells, dual) for cells in (*small, head))
+        if not dual:
+            err = max(err, hold_kernel(ek, head, dual, skip=~skip))
         out = ek.event_mask(head, dual)
         ms = cuda_ms(lambda: ek.event_mask(head, dual))
         plain_ms = cuda_ms(lambda: ek.event_mask_reference(head, dual), 3)
@@ -1656,6 +1759,380 @@ def drive_service(tn, ek, device):
     return metrics, rows
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cluster_cli(root: Path, run_dir: Path, *args, timeout=600):
+    """``python -m goworld_tpu_torch.cli <args>`` in the cluster's run
+    directory, with the checkout on PYTHONPATH."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(root))
+    return subprocess.run(
+        [sys.executable, "-m", "goworld_tpu_torch.cli", *args],
+        cwd=run_dir, env=env, capture_output=True, text=True,
+        timeout=timeout)
+
+
+def scrape(port: int, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.read().decode()
+
+
+def metric_series(text: str, name: str) -> dict:
+    """{labels: value} of one Prometheus family of a ``/metrics`` page."""
+    out = {}
+    for m in re.finditer(rf"^{re.escape(name)}(?:\{{([^}}]*)\}})? (\S+)$",
+                         text, re.M):
+        out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def game_reading(port: int) -> dict:
+    """One game's counters: AOI steps by label, the event kernel's launches
+    by form, tick phase seconds and ticks, live entities, and
+    ``aoi.drain`` from /opmon."""
+    text = scrape(port, "/metrics")
+    steps = {k.split('"')[1]: v for k, v in
+             metric_series(text, "jit_launches_total").items()}
+    forms = {k.split('"')[1]: v for k, v in
+             metric_series(text, "event_kernel_launches").items()}
+    sums = metric_series(text, "game_tick_phase_seconds_sum")
+    counts = metric_series(text, "game_tick_phase_seconds_count")
+    phases = {k.split('"')[1]: (v, counts.get(k, 0.0))
+              for k, v in sums.items()}
+    ents = sum(metric_series(text, "game_entities").values())
+    drain = json.loads(scrape(port, "/opmon")).get("aoi.drain", {})
+    return {"steps": steps, "forms": forms, "phases": phases,
+            "entities": ents, "drain": drain}
+
+
+def log_time(line: str) -> float:
+    """The wall-clock time of one gwlog text line."""
+    from datetime import datetime
+
+    stamp = " ".join(line.split()[:2])
+    return datetime.strptime(stamp, "%Y-%m-%d %H:%M:%S.%f").timestamp()
+
+
+def proc_start_wall(pid_and_start: str) -> float:
+    """A process's start on the wall clock, from a CLI pidfile ("pid
+    starttime", the kernel's start time in clock ticks since boot)."""
+    import os
+
+    ticks = int(pid_and_start.split()[1])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    boot = time.time() - uptime
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def incarnation(log_text: str, k: int) -> str:
+    """The part of a CLI-kept log that spawn ``k`` wrote (0 = first)."""
+    parts = log_text.split("\n--- spawn ")
+    return parts[k + 1] if len(parts) > k + 1 else ""
+
+
+def cluster_procs(run_dir: Path) -> list:
+    """Live processes whose command line names the run directory."""
+    import os
+
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if str(run_dir) in cmd:
+            out.append((int(pid), cmd))
+    return out
+
+
+def drive_cluster(root: Path, device_name: str):
+    """cluster_ci (see CLUSTER_INI): the port's CLI starts the deployment,
+    the port's strict fleet runs twice across a live reload, then the CLI
+    stops it. Raises on any error; returns the metrics. The cluster is
+    killed in a ``finally`` and no process of it may be left."""
+    import asyncio
+    import shutil
+
+    from goworld_tpu_torch.client.bot_runner import run_fleet
+
+    run_dir = root / "cluster_ci_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    names = ("disp1", "disp2", "disp3", "gate1", "gate2", "gate3",
+             "http1", "http2", "http3")
+    ports = {k: free_port() for k in names}
+    tls = shutil.which("openssl") is not None
+    if tls:
+        subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+             "-keyout", str(run_dir / "rsa.key"),
+             "-out", str(run_dir / "rsa.crt"), "-days", "1",
+             "-subj", "/CN=localhost"],
+            check=True, capture_output=True, timeout=120)
+    (run_dir / "goworld.ini").write_text(CLUSTER_INI.format(
+        dir=run_dir, platform=CLUSTER_PLATFORM,
+        tls=CLUSTER_TLS.format(dir=run_dir) if tls else "", **ports))
+    gates = [("127.0.0.1", ports[f"gate{i}"]) for i in (1, 2, 3)]
+    https = {f"game{i}": ports[f"http{i}"] for i in (1, 2, 3)}
+    label = "aoi_step_kernel" if CLUSTER_PLATFORM != "cpu" \
+        else "aoi_step_reference"
+
+    def readings():
+        return {g: game_reading(port) for g, port in https.items()}
+
+    def logs():
+        return {g: (run_dir / f"{g}.out.log").read_text() for g in https}
+
+    async def fleet(seed, peaks):
+        async def sample():
+            while True:
+                for g, port in https.items():
+                    r = await asyncio.to_thread(game_reading, port)
+                    peaks[g] = max(peaks.get(g, 0.0), r["entities"])
+                await asyncio.sleep(1.0)
+
+        sampler = asyncio.create_task(sample())
+        try:
+            return await run_fleet(
+                CLUSTER_BOTS, gates, CLUSTER_RUN_S, strict=True,
+                compress=True, tls=tls, seed=seed, thing_timeout=20.0)
+        finally:
+            sampler.cancel()
+
+    def check_run(report, label_run):
+        done = {k: v["count"] for k, v in report["things"].items()}
+        if report["errors"]:
+            raise AssertionError(f"cluster_ci {label_run}: "
+                                 f"{len(report['errors'])} errors: "
+                                 f"{report['errors'][:5]}")
+        if sum(done.values()) < CLUSTER_BOTS * 2:
+            raise AssertionError(f"cluster_ci {label_run}: too little work "
+                                 f"done: {done}")
+        return {"bots": report["bots"], "errors": len(report["errors"]),
+                "timeouts": report["timeouts"], "things": done,
+                "retries": report.get("retries")}
+
+    def check_card(text, what):
+        if CLUSTER_PLATFORM != "cpu" and (
+                "AOI device: cuda" not in text or device_name not in text):
+            raise AssertionError(f"cluster_ci: {what}'s log does not name "
+                                 f"the card")
+
+    def steps_grew(before, after, what):
+        for g in https:
+            b = before[g]["steps"].get(label, 0.0)
+            a = after[g]["steps"].get(label, 0.0)
+            if a <= b:
+                raise AssertionError(f"cluster_ci: {g} counted no AOI step "
+                                     f"({label}) during {what}")
+            if CLUSTER_PLATFORM == "cpu":
+                continue
+            for form in ("event_mask_single", "event_mask_dual"):
+                if (after[g]["forms"].get(form, 0.0)
+                        <= before[g]["forms"].get(form, 0.0)):
+                    raise AssertionError(f"cluster_ci: {g} launched no "
+                                         f"{form} during {what}")
+
+    def per_game(before, after):
+        out = {}
+        for g in https:
+            phases = {}
+            for ph, (s, c) in after[g]["phases"].items():
+                s0, c0 = before[g]["phases"].get(ph, (0.0, 0.0))
+                phases[ph] = {"ticks": c - c0,
+                              "ms_per_tick": (1000.0 * (s - s0) / (c - c0)
+                                              if c > c0 else None)}
+            d = after[g]["drain"]
+            out[g] = {
+                "aoi_steps": after[g]["steps"].get(label, 0.0)
+                - before[g]["steps"].get(label, 0.0),
+                "event_kernel_launches": {
+                    f: v - before[g]["forms"].get(f, 0.0)
+                    for f, v in after[g]["forms"].items()},
+                "tick_phases": phases,
+                "aoi_drain_ms": {
+                    "count": d.get("count"),
+                    "p50": 1000.0 * d["p50"] if "p50" in d else None,
+                    "p99": 1000.0 * d["p99"] if "p99" in d else None},
+            }
+        return out
+
+    t_all = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        r = cluster_cli(root, run_dir, "start", CLUSTER_SERVER)
+        start_s = time.perf_counter() - t0
+        if r.returncode != 0 or "cluster started" not in r.stdout:
+            raise AssertionError(f"cluster_ci: start failed:\n{r.stdout}\n"
+                                 f"{r.stderr}")
+        print(f"cluster_ci: started in {start_s:.1f} s", flush=True)
+        for name in ("dispatcher1", "gate1"):
+            if "-m goworld_tpu_torch." not in \
+                    (run_dir / f"{name}.out.log").read_text():
+                raise AssertionError(f"cluster_ci: {name} is not the port's")
+        for g, text in logs().items():
+            check_card(incarnation(text, 0), g)
+        peaks1, peaks2 = {}, {}
+        before1 = readings()
+        rep1 = asyncio.run(fleet(42, peaks1))
+        after1 = readings()
+        run1 = check_run(rep1, "run 1")
+        steps_grew(before1, after1, "run 1")
+        print(json.dumps({"cluster_ci_run": run1}), flush=True)
+
+        t0 = time.perf_counter()
+        r = cluster_cli(root, run_dir, "reload", CLUSTER_SERVER)
+        reload_s = time.perf_counter() - t0
+        if r.returncode != 0 or "reload complete" not in r.stdout:
+            raise AssertionError(f"cluster_ci: reload failed:\n{r.stdout}\n"
+                                 f"{r.stderr}")
+        # Boot-to-ready of each restored game: its process's start to its
+        # "deployment ready" line (logged after the dispatchers' ack,
+        # which may land just after the CLI saw the started tag).
+        boot_to_ready = {}
+        deadline = time.monotonic() + 60
+        while len(boot_to_ready) < len(https):
+            for g, text in logs().items():
+                new = incarnation(text, 1)
+                ready = [ln for ln in new.splitlines()
+                         if "deployment ready" in ln]
+                if ready and g not in boot_to_ready:
+                    check_card(new, f"restored {g}")
+                    start = proc_start_wall(
+                        (run_dir / f"{g}.pid").read_text())
+                    boot_to_ready[g] = log_time(ready[0]) - start
+            if time.monotonic() > deadline:
+                raise AssertionError(f"cluster_ci: restored games not ready: "
+                                     f"{sorted(set(https) - set(boot_to_ready))}")
+            time.sleep(0.1)
+        print(f"cluster_ci: reload in {reload_s:.1f} s, boot-to-ready "
+              f"{boot_to_ready}", flush=True)
+        before2 = readings()
+        rep2 = asyncio.run(fleet(43, peaks2))
+        after2 = readings()
+        run2 = check_run(rep2, "run 2")
+        steps_grew(before2, after2, "run 2")
+        print(json.dumps({"cluster_ci_run": run2}), flush=True)
+
+        r = cluster_cli(root, run_dir, "stop", CLUSTER_SERVER)
+        if r.returncode != 0:
+            raise AssertionError(f"cluster_ci: stop failed:\n{r.stdout}")
+        peak_mem = {}
+        for g, text in logs().items():
+            found = re.findall(r"peak device memory: (\d+) bytes allocated, "
+                               r"(\d+) reserved", text)
+            peak_mem[g] = [{"allocated": int(a), "reserved": int(b)}
+                           for a, b in found]
+            if CLUSTER_PLATFORM != "cpu" and len(found) != 2:
+                raise AssertionError(f"cluster_ci: {g} logged its peak "
+                                     f"device memory {len(found)} times")
+        games1, games2 = per_game(before1, after1), per_game(before2, after2)
+        for g in https:
+            games1[g]["peak_entities"] = peaks1.get(g)
+            games2[g]["peak_entities"] = peaks2.get(g)
+            games1[g]["peak_device_memory"] = (peak_mem[g] or [None])[0]
+            games2[g]["peak_device_memory"] = (peak_mem[g] or [None])[-1]
+        return {
+            "shape": "3 dispatchers x 3 games x 3 gates",
+            "compress": True, "tls": tls, "platform": CLUSTER_PLATFORM,
+            "bots": CLUSTER_BOTS, "run_s": CLUSTER_RUN_S,
+            "cut": ["300 s -> 30 s a fleet run"]
+            + ([] if tls else ["TLS off: no openssl"]),
+            "start_s": start_s,
+            "run1": run1, "run2": run2,
+            "reload_window_s": reload_s,
+            "restored_boot_to_ready_s": boot_to_ready,
+            "games_run1": games1, "games_run2": games2,
+            "seconds": time.perf_counter() - t_all,
+        }
+    finally:
+        cluster_cli(root, run_dir, "kill", CLUSTER_SERVER, timeout=120)
+        deadline = time.monotonic() + 30
+        while cluster_procs(run_dir) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = cluster_procs(run_dir)
+        if left:
+            raise AssertionError(f"cluster_ci: processes left: {left}")
+
+
+def cluster_kernel_checks(tn, ek, device):
+    """Both mask forms against their plain version at the cluster games'
+    cells (see CLUSTER_AOI_ENTITIES), timed there. Returns the forms' rows
+    and the cells' configuration."""
+    from goworld_tpu_torch.config.read_config import AOIConfig
+    from goworld_tpu_torch.entity.aoi.batched import params_from_config
+
+    p = params_from_config(AOIConfig())
+    rng = np.random.default_rng(7)
+    n, k = p.capacity, CLUSTER_AOI_ENTITIES
+    ppos = np.zeros((n, 2), np.float32)
+    ppos[:k] = rng.integers(-CLUSTER_AOI_HALF, CLUSTER_AOI_HALF + 1, (k, 2))
+    pos = ppos.copy()
+    pos[:k] += rng.uniform(-CLUSTER_AOI_STEP, CLUSTER_AOI_STEP,
+                           (k, 2)).astype(np.float32)
+    space = np.zeros(n, np.int32)
+    space[:k] = 1 + rng.integers(0, CLUSTER_AOI_SPACES, k)
+    active = np.zeros(n, bool)
+    active[:k] = True
+    rows = kernel_checks(tn, ek, p, pos, ppos, space, device, active)
+    config = {"capacity": p.capacity, "grid": [p.grid_x, p.grid_z],
+              "cell_size": p.cell_size, "space_slots": p.space_slots,
+              "cell_capacity": p.cell_capacity, "entities": k,
+              "spaces": CLUSTER_AOI_SPACES, "radius": 100.0}
+    return rows, config
+
+
+def hold_graft_entry(device):
+    """``graft_entry.entry()`` once on the card: its packed output against
+    the reference step on the same epochs (the enter and leave counts and
+    the drop count equal; every emitted enter pair is one of the
+    reference's enters)."""
+    from goworld_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(device)
+    t0 = time.perf_counter()
+    out = fn(*args)[2]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    ms = 1000.0 * (time.perf_counter() - t0)
+    rfn, rargs = graft_entry.reference(device)
+    enter_ids, _, rout, _ = rfn(*rargs)
+    got, want = out.cpu().numpy(), rout.cpu().numpy()
+    n, cap = graft_entry.PARAMS.capacity, graft_entry.PARAMS.max_events
+    if not (np.array_equal(got[0], want[0]) and got[1, 0] == want[1, 0]):
+        raise AssertionError(f"graft entry: counts {got[:2].tolist()} differ "
+                             f"from the reference's {want[:2].tolist()}")
+    k = min(int(got[0, 0]), cap)
+    emitted = got[3:3 + k]
+    check_pairs(emitted, n, "graft entry enters")
+    ids = enter_ids.cpu().numpy()
+    rows, cols = np.nonzero(ids < n)
+    ref = np.sort(rows.astype(np.int64) * n + ids[rows, cols])
+    keys = emitted[:, 0].astype(np.int64) * n + emitted[:, 1]
+    if len(np.unique(keys)) != k or not np.isin(keys, ref).all():
+        raise AssertionError("graft entry: emitted enters are not the "
+                             "reference's")
+    print(f"graft entry: {int(got[0, 0])} enters, {int(got[0, 1])} leaves, "
+          f"dropped {int(got[1, 0])}, {k} emitted: equal to the reference "
+          f"step ({ms:.1f} ms, first call)", flush=True)
+    return {"enters": int(got[0, 0]), "leaves": int(got[0, 1]),
+            "dropped": int(got[1, 0]), "emitted": k, "first_call_ms": ms}
+
+
 def ptxas_resources(log):
     """Each kernel's ptxas resource lines from an ``nvcc -Xptxas -v`` log:
     {function: "Used N registers, ...; S bytes stack frame, ..."}."""
@@ -1686,8 +2163,8 @@ def build_kernels(_build):
         log = _build.build(name)
         return time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        done = dict(zip(SOURCES, pool.map(one, SOURCES)))
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        done = dict(zip(_build.SOURCES, pool.map(one, _build.SOURCES)))
     for name, (seconds, log) in done.items():
         print(f"build: {seconds:.1f} s for {KERNELS[name][0]}", flush=True)
         for fn, res in ptxas_resources(log).items():
@@ -1751,6 +2228,24 @@ def main() -> int:
         }
         row["max_abs_err"] = max(row["max_abs_err"], srow["max_abs_err"])
     kernels[2:2] = drain_rows
+    graft = hold_graft_entry(device)
+    cluster_rows, cluster_cells = cluster_kernel_checks(tn, ek, device)
+    cluster = drive_cluster(Path(__file__).resolve().parent,
+                            torch.cuda.get_device_name(0))
+    cluster["graft_entry"] = graft
+    cluster["kernel_cells"] = cluster_cells
+    print(json.dumps({"cluster_ci": cluster}), flush=True)
+    games = [cluster[run][g]["event_kernel_launches"]
+             for run in ("games_run1", "games_run2") for g in cluster[run]]
+    for row, crow in zip(kernels, cluster_rows):  # the mask forms
+        row["cluster_ci"] = {
+            "launches": sum(c.get(row["name"], 0.0) for c in games),
+            **{k: crow[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "max_abs_err")},
+            **({"skipped_ms": crow["skipped_ms"]}
+               if "skipped_ms" in crow else {}),
+        }
+        row["max_abs_err"] = max(row["max_abs_err"], crow["max_abs_err"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

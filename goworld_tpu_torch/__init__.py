@@ -9,12 +9,34 @@ needs are copies under the same relative paths.
 Ported so far: the single-device AOI neighbor engine with its step-riding
 passes (fused entity logic, the [sync] cadence tier pass, the edge
 verdicts) and the boids step (``ops``); the strip+halo sharded AOI engine
-(``parallel``); and the game's side of the main path: the in-process
-entity model (``entity``: slabs, columns, Entity, Space, the runtime in
-``entity.entity_manager``) and the AOI managers (``entity.aoi``: the CPU
-xzlist manager and the batched service, ``BatchAOIService``), with the
-utilities, telemetry registry, wire dtypes and no-cluster dispatcher seam
-they import (``utils``, ``telemetry``, ``proto``, ``dispatchercluster``,
-``common``, ``consts``). Engines, the service and the runtime run on CUDA
-unless the caller passes ``device="cpu"`` (``runtime.aoi_device``).
+(``parallel``); the in-process entity model (``entity``: slabs, columns,
+Entity, Space, the runtime in ``entity.entity_manager``) and the AOI
+managers (``entity.aoi``: the CPU xzlist manager and the batched service,
+``BatchAOIService``); and the cluster around them: the game process
+(``game``, booted on the card), the dispatcher, the gate, the bot client,
+the wire (``native``, ``netutil``, ``proto``), ``config``, ``telemetry``,
+storage and kvdb backends, services and rebalancing, the ops CLI
+(``python -m goworld_tpu_torch.cli start <server_module>``) and the
+reference's test game (``goworld_tpu_torch.examples.test_game``). Engines,
+the service and the runtime run on CUDA unless the caller passes
+``device="cpu"`` (``runtime.aoi_device``; a game's ``[aoi] platform``).
 """
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    # Delegate to the lazy facade (goworld.go-style API) without importing
+    # any subsystem eagerly. importlib (not ``from goworld_tpu_torch import``) —
+    # attribute access on the partially-initialized package would recurse.
+    import importlib
+
+    facade = importlib.import_module("goworld_tpu_torch.facade")
+    return getattr(facade, name)
+
+
+def __dir__():
+    import importlib
+
+    facade = importlib.import_module("goworld_tpu_torch.facade")
+    return sorted(set(globals()) | set(facade.__all__))

@@ -24,6 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+#: Every kernel source, by name (``csrc/<name>.cu``): one library each.
+SOURCES = tuple(sorted(f.stem for f in CSRC.glob("*.cu")))
 
 # --fmad=false: d2 = dx*dx + dz*dz must round each product and the sum, as
 # the plain PyTorch versions do (an FMA changes the result at d2 == r2).

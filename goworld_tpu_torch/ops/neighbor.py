@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from goworld_tpu_torch.ops.event_kernel import LANES, _F, _PACK, event_mask
+from goworld_tpu_torch.telemetry import sentinel
 
 log = logging.getLogger(__name__)
 
@@ -1135,6 +1136,11 @@ class NeighborEngine:
         outs = _step_packed_tiered(
             self.params, self.backend, programs, tcfg, want_verdicts,
             subj, wat, self._state, cur, extra)
+        # One step dispatch (the JAX labels: neighbor.py's SentinelJit
+        # wrappers); the riding tier and verdict passes are not split out.
+        sentinel.note_launch(
+            f"aoi_step_fused_{self.backend}" if programs is not None
+            else f"aoi_step_{self.backend}")
         verdict_out = tier_out = fused_out = None
         if want_verdicts:
             verdict_out, outs = outs[-1], outs[:-1]

@@ -1,3 +1,6 @@
-"""Runtime utilities the entity model and the AOI service use: logging,
-panicless wrappers, the post queue, timers and operation monitoring
-(copies of ``goworld_tpu.utils``' modules of the same names)."""
+"""Runtime utilities: logging, panicless wrappers, post queue, timers,
+operation monitoring, crontab and async job groups.
+
+Reference parity: engine/gwlog, engine/gwutils, engine/post, engine/opmon,
+engine/crontab, engine/async (see SURVEY.md §2.1).
+"""

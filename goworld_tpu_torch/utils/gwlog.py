@@ -6,9 +6,11 @@ stack dump) and Fatal/Panic helpers. Here we build on the stdlib ``logging``
 module with the same surface.
 
 ``[log] format = json`` switches every handler to one JSON object per line
-(level/ts/source/msg). The zap-parity text format stays the default.
-(A copy of ``goworld_tpu.utils.gwlog``; the port has no distributed
-tracing, so JSON lines carry no ``trace_id``.)
+(level/ts/source/msg) with automatic ``trace_id`` injection when the line
+is emitted inside an active distributed-trace span (telemetry/tracing.py) —
+so grepping a trace id across the per-process logs of a cluster yields the
+exact log lines of one sampled request. The zap-parity text format stays
+the default.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ _FORMAT = "%(asctime)s.%(msecs)03d %(levelname).1s %(source)s %(message)s"
 _DATEFMT = "%Y-%m-%d %H:%M:%S"
 
 _source = "goworld"
-_logger = logging.getLogger("goworld_tpu")
+_logger = logging.getLogger("goworld_tpu_torch")
 _configured = False
 
 
@@ -43,6 +45,16 @@ class _JsonFormatter(logging.Formatter):
             "source": getattr(record, "source", _source),
             "msg": record.getMessage(),
         }
+        # Lazy import: gwlog must stay importable before telemetry (and
+        # tracing itself logs through gwlog).
+        try:
+            from goworld_tpu_torch.telemetry import tracing
+
+            ctx = tracing.current()
+            if ctx is not None:
+                obj["trace_id"] = f"{ctx.trace_id:016x}"
+        except Exception:
+            pass
         if record.exc_info:
             obj["exc"] = self.formatException(record.exc_info)
         return json.dumps(obj, separators=(",", ":"), default=str)

@@ -31,10 +31,13 @@ PACKAGE = ROOT / "goworld_tpu_torch"
 
 
 def port_modules():
+    """Every importable module of the port; the ``__main__`` modules are
+    process entry points (importing one runs a dispatcher, a gate, a bot
+    fleet or a game) and are held by the source scan below instead."""
     return sorted(
         ".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(
             ".__init__")
-        for f in PACKAGE.rglob("*.py")
+        for f in PACKAGE.rglob("*.py") if f.name != "__main__.py"
     )
 
 
@@ -48,7 +51,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "entity.aoi.batched", "entity.aoi.xzlist", "utils.gwlog",
               "utils.opmon", "utils.timer", "telemetry",
               "telemetry.metrics", "proto", "proto.conn",
-              "dispatchercluster", "common", "consts"):
+              "dispatchercluster", "common", "consts", "game",
+              "game.service", "cli", "dispatcher", "dispatcher.service",
+              "gate", "gate.service", "client", "client.bot_runner",
+              "config", "config.read_config", "facade",
+              "examples.test_game", "examples.test_game.server",
+              "graft_entry", "native", "netutil", "telemetry.sentinel",
+              "utils.debug_http", "dispatchercluster.cluster"):
         assert f"goworld_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -67,7 +76,12 @@ def test_port_sources_name_no_jax_package_import():
     for rel in ("parallel/spatial.py", "entity/aoi/batched.py",
                 "entity/entity_manager.py", "entity/columns.py",
                 "utils/gwlog.py", "telemetry/metrics.py", "proto/conn.py",
-                "dispatchercluster/__init__.py", "common/__init__.py"):
+                "dispatchercluster/__init__.py", "common/__init__.py",
+                "game/service.py", "cli.py", "dispatcher/__main__.py",
+                "gate/__main__.py", "client/__main__.py",
+                "config/read_config.py", "facade.py",
+                "examples/test_game/__main__.py",
+                "examples/test_game/server.py", "graft_entry.py"):
         assert PACKAGE / rel in files
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -353,3 +367,200 @@ def test_cuda_service_matches_cpu_service(cuda, fuse):
     assert a[1] == b[1]
     for x, y in zip(a[2], b[2]):
         np.testing.assert_array_equal(x, y)
+
+
+def boot_game_and_tick(tmp_path, platform):
+    """The port's dispatcher and a ``GameService`` in-process with
+    ``[aoi] backend = tpu`` and ``platform``: a space of 200 AOI walkers
+    ticks for a second. Returns the AOI service's device type and the
+    sentinel's AOI step count after the boot's warmup and at the end."""
+    import asyncio
+
+    from goworld_tpu_torch.config import read_config as rc
+    from goworld_tpu_torch.dispatcher import DispatcherService
+    from goworld_tpu_torch.entity import entity_manager as em
+    from goworld_tpu_torch.entity.entity import Entity
+    from goworld_tpu_torch.entity.space import Space
+    from goworld_tpu_torch.entity.vector import Vector3
+    from goworld_tpu_torch.game import GameService
+    from goworld_tpu_torch.telemetry import sentinel
+
+    class CardSpace(Space):
+        @classmethod
+        def describe_entity_type(cls, desc):
+            desc.define_attr("_EnableAOI", "Persistent")
+
+    class Walker(Entity):
+        @classmethod
+        def describe_entity_type(cls, desc):
+            desc.set_use_aoi(True, 100.0)
+
+    label = "aoi_step_kernel" if platform != "cpu" else "aoi_step_reference"
+
+    async def run():
+        disp = DispatcherService(1, desired_games=1, desired_gates=0)
+        await disp.start()
+        cfg = rc.GoWorldConfig()
+        cfg.dispatchers = {1: rc.DispatcherConfig(port=disp.port)}
+        cfg.games = {1: rc.GameConfig(save_interval=0.0,
+                                      position_sync_interval=0.02)}
+        cfg.storage = rc.StorageConfig(type="filesystem",
+                                       directory=str(tmp_path / "es"))
+        cfg.kvdb = rc.KVDBConfig(type="filesystem",
+                                 directory=str(tmp_path / "kv"))
+        cfg.aoi = rc.AOIConfig(backend="tpu", platform=platform,
+                               max_entities=1024)
+        em.register_space(CardSpace)
+        em.register_entity(Walker)
+        svc = GameService(1, cfg)
+        task = asyncio.get_running_loop().create_task(svc.run_async())
+        while em.runtime.aoi_service is None or not svc._started_at:
+            await asyncio.sleep(0.01)
+        await asyncio.sleep(0.2)
+        booted = sentinel.launches_total(label)
+        space = em.create_space_locally(kind=1)
+        space.enable_aoi(100.0)
+        rng = np.random.default_rng(3)
+        walkers = []
+        for _ in range(200):
+            w = em.create_entity_locally("Walker")
+            space._enter(w, Vector3(*rng.uniform(0, 800, 3)))
+            walkers.append(w)
+        for _ in range(50):
+            for w in walkers[:50]:
+                p = w.position
+                w.set_position(Vector3(p.x + 1.0, p.y, p.z))
+            await asyncio.sleep(0.02)
+        dev = em.runtime.aoi_service.device.type
+        svc.terminate()
+        assert await asyncio.wait_for(task, timeout=30) == 0
+        await disp.stop()
+        return dev, booted, sentinel.launches_total(label)
+
+    em.cleanup_for_tests()
+    try:
+        return asyncio.run(run())
+    finally:
+        em.cleanup_for_tests()
+
+
+@pytest.mark.cuda
+def test_cuda_game_boots_on_the_card(cuda, tmp_path, monkeypatch):
+    """A game with ``platform = auto`` puts its batched AOI service on the
+    card, warms it up there before the ready barrier, and counts its AOI
+    steps (``jit_launches_total{fn="aoi_step_kernel"}``) as it ticks."""
+    monkeypatch.chdir(tmp_path)
+    dev, booted, final = boot_game_and_tick(tmp_path, "auto")
+    assert dev == "cuda"
+    assert booted >= 1  # the boot's warmup step
+    assert final > booted
+
+
+def freeze_after_fused_ticks(device):
+    """A fused columnar world on ``device`` ticks with a step in flight,
+    then freezes as ``GameService._do_freeze`` does (flush, then
+    ``freeze_entities``). Returns the freeze data."""
+    from goworld_tpu_torch.entity import entity_manager as em
+    from goworld_tpu_torch.entity.columns import columnar_tick
+    from goworld_tpu_torch.entity.entity import Entity
+    from goworld_tpu_torch.entity.space import Space
+    from goworld_tpu_torch.entity.vector import Vector3
+
+    def drift(x, y, z, yaw, dt, vx, vz):
+        return x + vx * dt, y, z + vz * dt, yaw, vx, vz
+
+    class FreezeSpace(Space):
+        @classmethod
+        def describe_entity_type(cls, desc):
+            desc.define_attr("_EnableAOI", "Persistent")
+
+    class Drifter(Entity):
+        on_tick_batch = columnar_tick(drift, ("vx", "vz"))
+
+        @classmethod
+        def describe_entity_type(cls, desc):
+            desc.set_use_aoi(True, 100.0)
+            desc.define_attr("vx", "Column")
+            desc.define_attr("vz", "Column")
+
+    em.cleanup_for_tests()
+    try:
+        rt = em.runtime
+        rt.gameid = 1
+        rt.aoi_backend = "batched"
+        rt.aoi_device = device
+        rt.aoi_fuse_logic = True
+        rt.aoi_params = tn.NeighborParams(
+            capacity=512, cell_size=100.0, grid_x=8, grid_z=8,
+            space_slots=2, cell_capacity=64, max_events=2048)
+        em.register_space(FreezeSpace)
+        em.register_entity(Drifter)
+        em.create_nil_space(1)
+        sp = em.create_space_locally(kind=1)
+        sp.enable_aoi(100.0)
+        rng = np.random.default_rng(5)
+        for _ in range(200):
+            e = em.create_entity_locally("Drifter")
+            sp._enter(e, Vector3(*rng.uniform(0, 700, 3)))
+            e.attrs["vx"] = float(rng.normal(0, 5))
+            e.attrs["vz"] = float(rng.normal(0, 5))
+        svc = rt.aoi_service
+        for _ in range(4):
+            rt.slabs.run_tick_batches()
+            svc.tick()  # the last step stays in flight
+        svc.flush()
+        return em.freeze_entities(1)
+    finally:
+        em.cleanup_for_tests()
+
+
+def no_tensor_in(obj) -> bool:
+    if isinstance(obj, torch.Tensor):
+        return False
+    if isinstance(obj, dict):
+        return all(no_tensor_in(k) and no_tensor_in(v)
+                   for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return all(no_tensor_in(v) for v in obj)
+    return True
+
+
+@pytest.mark.cuda
+def test_cuda_freeze_data_holds_no_tensor(cuda):
+    """A freeze on the card under ``[aoi] fuse_logic`` (fused programs
+    writing Column attrs back from the device): the freeze data holds
+    plain values only and dumps to JSON, as the game writes it."""
+    import json
+
+    data = freeze_after_fused_ticks("cuda")
+    assert no_tensor_in(data)
+    assert len(data["entities"]) == 200
+    json.dumps(data)
+
+
+def test_game_boots_and_counts_steps_on_cpu(tmp_path, monkeypatch):
+    """``platform = cpu``: the game's batched service runs the plain
+    versions, and the sentinel counts its AOI steps as on the card."""
+    monkeypatch.chdir(tmp_path)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        dev, booted, final = boot_game_and_tick(tmp_path, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert dev == "cpu"
+    assert booted >= 1 and final > booted
+
+
+def test_freeze_data_holds_no_tensor_on_cpu():
+    import json
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        data = freeze_after_fused_ticks("cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert no_tensor_in(data)
+    assert len(data["entities"]) == 200
+    json.dumps(data)
