@@ -41,7 +41,17 @@ toolkit. It
    budget, and times them;
 8. drives ``service_10k``: the port's runtime and batched AOI service at
    10,240 avatars (BASELINE.json config 2), fused logic off then on;
-9. ``cluster_ci``: the reference's CI deployment (.travis.yml, the
+9. ``scenarios``: the scenario matrix (``hotspot``, ``battle_royale``,
+   ``service_heavy``, each at its registered config) through
+   ``run_scenario`` on the card, on the batched engine (the mask forms)
+   and on the 8-strip engine with its strips on the card (the drain forms
+   and, for ``hotspot``'s crowd, the all-gather fallback); every run's
+   ``invariants`` bit for bit against the batched engine on the CPU, one
+   step program a tick, and the event kernel's launches counted from 0
+   around each run; both mask forms held and timed at ``hotspot``'s
+   endgame cells; the port bench (``python -m goworld_tpu_torch.bench``)
+   at cut steps;
+10. ``cluster_ci``: the reference's CI deployment (.travis.yml, the
    3 dispatchers x 3 games x 3 gates of ``tests/test_stress.py``'s
    ``TRAVIS_INI``, compression and TLS on) started by the port's CLI
    (``python -m goworld_tpu_torch.cli start
@@ -54,7 +64,10 @@ toolkit. It
    starts, both mask forms are held against their plain version and timed
    at the games' own cells (``params_from_config`` of the default
    ``[aoi]``: 16,384 slots, 32x32 cells of 100, 4 space slots, cell
-   capacity 64, with 1,024 entities in 64 spaces). It also runs
+   capacity 64, with 1,024 entities in 64 spaces). During the first run
+   one game's ``/profile?mode=torch`` window must trace the card's
+   kernels and the event kernel's launch (``gw_event_mask``); their summed
+   device time over the window is the game's busy share. It also runs
    ``graft_entry.entry()`` once on the card against the reference step.
 
 The kernels are built first, all at once. It prints bench.py's metrics, a
@@ -210,6 +223,20 @@ CLUSTER_TLS = """encrypt_connection = true
 rsa_key = {dir}/rsa.key
 rsa_cert = {dir}/rsa.crt
 """
+
+# The scenario matrix (goworld_tpu_torch/scenarios), each at its registered
+# config: the registry fixes the sizes and they are never tuned here.
+SCENARIOS = ("hotspot", "battle_royale", "service_heavy")
+# The port bench's headline (python -m goworld_tpu_torch.bench) at cut
+# steps: its pipelined and synchronous ticks.
+BENCH_ENV = {"BENCH_STEPS": "20", "BENCH_SYNC_STEPS": "10"}
+BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "backend", "device",
+                "entities", "ticks_per_sec", "events_per_tick",
+                "paged_ticks", "collect_p50_ms", "collect_p99_ms",
+                "diff_latency_p50_ms", "diff_latency_p99_ms",
+                "post_step_drain_p50_ms", "post_step_drain_p99_ms")
+# The torch profiler window asked of one game in cluster_ci's first run.
+PROFILE_S = 2.0
 
 # Each kernel's source, and the TPU kernel it replaces.
 KERNELS = {
@@ -1759,6 +1786,122 @@ def drive_service(tn, ek, device):
     return metrics, rows
 
 
+def endgame_cells(spec):
+    """A scenario's world after its last tick, and the tick before: the
+    engine params the runner builds for it and the (pos, ppos, space,
+    active) of that steady step."""
+    from goworld_tpu_torch.scenarios.runner import make_engine
+
+    world = spec.make()
+    world.setup()
+    try:
+        prev = world.pos
+        for t in range(1, int(world.config["ticks"])):
+            prev = world.pos
+            world.tick(t)
+    finally:
+        world.teardown()
+    p = make_engine(world.config, "batched", device="cpu").params
+    return p, (world.pos, prev, world.space, world.active)
+
+
+def drive_scenarios(tn, ek, device):
+    """scenarios: each scenario of the matrix on the card through
+    ``run_scenario``, on the batched engine (the event kernel's mask forms)
+    and on the 8-strip engine with its strips on the one card (the drain
+    forms, and the all-gather fallback), each run's ``invariants`` held
+    bit for bit against the batched engine on the CPU, the one-launch pin
+    read, and the event kernel's launches counted from 0 around each run.
+    Then both mask forms at hotspot's endgame cells (the densest cells the
+    kernel sees), and the port bench's headline at cut steps. Returns the
+    metrics and the mask rows (from the endgame cells)."""
+    import os
+
+    from goworld_tpu_torch.scenarios import get_scenario
+    from goworld_tpu_torch.scenarios.runner import run_scenario
+
+    card = torch.cuda.get_device_name(0)
+    runs = {}
+    for name in SCENARIOS:
+        t0 = time.perf_counter()
+        cpu = run_scenario(name, "batched", device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for engine in ("batched", "sharded"):
+            ek.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = run_scenario(name, engine, device=device, backend="kernel")
+            seconds = time.perf_counter() - t0
+            launches = dict(ek.launches)
+            what = f"scenarios {name} {engine}"
+            if r["backend"] != "kernel" or r["device"] != card:
+                raise AssertionError(f"{what}: ran on {r['backend']} / "
+                                     f"{r['device']}, not the kernel on "
+                                     f"{card}")
+            if r["invariants"] != cpu["invariants"]:
+                raise AssertionError(f"{what}: invariants differ from the "
+                                     f"CPU run's: {r['invariants']} vs "
+                                     f"{cpu['invariants']}")
+            if r["step_launches"] != r["ticks_dispatched"]:
+                raise AssertionError(f"{what}: {r['step_launches']} step "
+                                     f"launches for {r['ticks_dispatched']} "
+                                     f"ticks")
+            forms = ek.FORMS if engine == "batched" else ek.DRAIN_FORMS
+            for form in forms:
+                if launches[form] <= 0:
+                    raise AssertionError(f"{what}: {form} was never "
+                                         f"launched")
+            if (name, engine) == ("hotspot", "sharded") \
+                    and r["fallback_ticks"] <= 0:
+                raise AssertionError(f"{what}: the crowd never took the "
+                                     f"strip-overflow fallback")
+            line = {k: r[k] for k in (
+                "metric", "value", "unit", "runs", "engine", "backend",
+                "device", "seed", "step_launches", "ticks_dispatched",
+                "invariants")}
+            line.update(
+                {k: r[k] for k in ("fallback_ticks", "shard_migrations",
+                                   "fast_ticks", "service_op_p95_ms")
+                 if k in r},
+                event_kernel_launches=launches, seconds=seconds,
+                cpu_value=cpu["value"], cpu_seconds=cpu_s)
+            print(json.dumps({"scenario": line}), flush=True)
+            runs[f"{name}_{engine}"] = line
+    print("scenarios: every card run's invariants equal the CPU run's, one "
+          "step program a tick, the kernel launched in every run", flush=True)
+
+    # Both mask forms at hotspot's endgame cells.
+    p, (pos, ppos, space, active) = endgame_cells(get_scenario("hotspot"))
+    cells = steady_cells(tn, p, pos, ppos, space, device, active)
+    have = (~torch.isnan(cells[..., ek._FX_A, :])).sum(-1)
+    occupied = have[have > 0].float()
+    density = {"max_lanes": int(have.max()),
+               "mean_lanes_occupied_cells": float(occupied.mean()),
+               "occupied_cells": int(occupied.numel())}
+    del cells
+    rows = kernel_checks(tn, ek, p, pos, ppos, space, device, active)
+    print(json.dumps({"hotspot_endgame_cells": density}), flush=True)
+
+    # The port bench's headline at cut steps, as a user runs it.
+    env = dict(os.environ, **BENCH_ENV)
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+    out = subprocess.run(
+        [sys.executable, "-m", "goworld_tpu_torch.bench"], env=env,
+        capture_output=True, text=True, timeout=600, check=True,
+        cwd=Path(__file__).resolve().parent).stdout.strip().splitlines()
+    headline = json.loads(out[-1])
+    missing = [k for k in BENCH_FIELDS if k not in headline]
+    if missing or headline.get("error"):
+        raise AssertionError(f"scenarios: the bench's headline lacks "
+                             f"{missing}: {headline.get('error')}")
+    if headline["backend"] != "kernel" or headline["device"] != card \
+            or not headline["value"] > 0:
+        raise AssertionError(f"scenarios: the bench ran {headline}")
+    print(json.dumps({"bench_aoi": headline}), flush=True)
+    metrics = {"runs": runs, "hotspot_endgame_cells": density,
+               "bench_aoi": headline, "bench_env": BENCH_ENV}
+    return metrics, rows
+
+
 def free_port() -> int:
     import socket
 
@@ -1779,12 +1922,53 @@ def cluster_cli(root: Path, run_dir: Path, *args, timeout=600):
         timeout=timeout)
 
 
-def scrape(port: int, path: str) -> str:
+def scrape(port: int, path: str, timeout: float = 10) -> str:
     import urllib.request
 
     with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
-                                timeout=10) as r:
+                                timeout=timeout) as r:
         return r.read().decode()
+
+
+def profile_game(port: int) -> dict:
+    """One game's ``/profile?mode=torch`` window of PROFILE_S seconds: the
+    trace must exist, name the event kernel's entry point (``gw_event_mask``,
+    the wrapper's record around its launch) and hold that entry point's
+    device kernel (``event_mask_kernel``) among the card's kernels of the
+    window; the kernels' summed device time over the window is the game's
+    device busy share. ``request_s`` is the request's wall time: the
+    window plus the trace's set-up off the game's loop and its export."""
+    t0 = time.perf_counter()
+    answer = json.loads(scrape(
+        port, f"/profile?mode=torch&seconds={PROFILE_S}", timeout=120))
+    request_s = time.perf_counter() - t0
+    events = json.loads(Path(answer["trace"]).read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    masks = [e for e in kernels if "event_mask_kernel" in e["name"]]
+    if not answer["cuda"] or "gw_event_mask" not in names or not masks:
+        raise AssertionError(f"cluster_ci: the game's torch trace "
+                             f"{answer['trace']} names no gw_event_mask "
+                             f"launch or holds no event_mask_kernel on the "
+                             f"card: {answer}")
+    by_name = {}
+    for e in kernels:
+        k = e["name"].replace("(anonymous namespace)::", "").split("(")[0]
+        by_name[k] = by_name.get(k, 0.0) + e["dur"] / 1000.0
+    busy_ms = sum(by_name.values())
+    return {"trace": answer["trace"], "window_s": answer["seconds"],
+            "request_s": request_s,
+            "device_kernels": len(kernels),
+            # Events named after the entry point: the host record, and
+            # the trace may copy it onto the card's timeline.
+            "gw_event_mask_records": sum(
+                1 for e in events if e.get("name") == "gw_event_mask"),
+            "event_mask_kernels": len(masks),
+            "event_mask_kernel_ms": sum(e["dur"] for e in masks) / 1000.0,
+            "kernel_ms": busy_ms,
+            "busy_share": busy_ms / (1000.0 * answer["seconds"]),
+            "top_kernels_ms": dict(sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8])}
 
 
 def metric_series(text: str, name: str) -> dict:
@@ -1897,7 +2081,7 @@ def drive_cluster(root: Path, device_name: str):
     def logs():
         return {g: (run_dir / f"{g}.out.log").read_text() for g in https}
 
-    async def fleet(seed, peaks):
+    async def fleet(seed, peaks, profile=None):
         async def sample():
             while True:
                 for g, port in https.items():
@@ -1905,13 +2089,27 @@ def drive_cluster(root: Path, device_name: str):
                     peaks[g] = max(peaks.get(g, 0.0), r["entities"])
                 await asyncio.sleep(1.0)
 
+        async def profiled():
+            # Once the fleet has spawned (its 4 s stagger), one game's
+            # torch profiler window.
+            await asyncio.sleep(8.0)
+            profile.update(await asyncio.to_thread(
+                profile_game, https["game1"]))
+
         sampler = asyncio.create_task(sample())
+        prof = (asyncio.create_task(profiled()) if profile is not None
+                else None)
         try:
-            return await run_fleet(
+            report = await run_fleet(
                 CLUSTER_BOTS, gates, CLUSTER_RUN_S, strict=True,
                 compress=True, tls=tls, seed=seed, thing_timeout=20.0)
+            if prof is not None:
+                await prof
+            return report
         finally:
             sampler.cancel()
+            if prof is not None:
+                prof.cancel()
 
     def check_run(report, label_run):
         done = {k: v["count"] for k, v in report["things"].items()}
@@ -1987,12 +2185,22 @@ def drive_cluster(root: Path, device_name: str):
         for g, text in logs().items():
             check_card(incarnation(text, 0), g)
         peaks1, peaks2 = {}, {}
+        profile = {} if CLUSTER_PLATFORM != "cpu" else None
         before1 = readings()
-        rep1 = asyncio.run(fleet(42, peaks1))
+        rep1 = asyncio.run(fleet(42, peaks1, profile))
         after1 = readings()
         run1 = check_run(rep1, "run 1")
         steps_grew(before1, after1, "run 1")
         print(json.dumps({"cluster_ci_run": run1}), flush=True)
+        if profile is not None:
+            print(f"cluster_ci: game1's torch profile, {PROFILE_S} s window "
+                  f"({profile['request_s']:.2f} s request): "
+                  f"{profile['kernel_ms']:.3f} ms of kernels, busy share "
+                  f"{profile['busy_share']:.5f}, "
+                  f"{profile['gw_event_mask_records']} gw_event_mask "
+                  f"records, {profile['event_mask_kernels']} "
+                  f"event_mask_kernel runs in "
+                  f"{profile['event_mask_kernel_ms']:.3f} ms", flush=True)
 
         t0 = time.perf_counter()
         r = cluster_cli(root, run_dir, "reload", CLUSTER_SERVER)
@@ -2057,6 +2265,7 @@ def drive_cluster(root: Path, device_name: str):
             "reload_window_s": reload_s,
             "restored_boot_to_ready_s": boot_to_ready,
             "games_run1": games1, "games_run2": games2,
+            "game1_torch_profile": profile,
             "seconds": time.perf_counter() - t_all,
         }
     finally:
@@ -2228,6 +2437,20 @@ def main() -> int:
         }
         row["max_abs_err"] = max(row["max_abs_err"], srow["max_abs_err"])
     kernels[2:2] = drain_rows
+    scenarios, scenario_rows = drive_scenarios(tn, ek, device)
+    print(json.dumps({"scenarios": scenarios}), flush=True)
+    for row in kernels[:4]:  # the mask forms by the batched runs, the
+        # drain forms by the strip runs
+        engine = "batched" if row["name"] in ek.FORMS else "sharded"
+        row["scenarios"] = {"launches": sum(
+            r["event_kernel_launches"][row["name"]]
+            for key, r in scenarios["runs"].items()
+            if key.endswith(engine))}
+    for row, srow in zip(kernels, scenario_rows):  # the mask forms
+        row["scenarios"]["hotspot_endgame"] = {
+            k: srow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "max_abs_err")}
+        row["max_abs_err"] = max(row["max_abs_err"], srow["max_abs_err"])
     graft = hold_graft_entry(device)
     cluster_rows, cluster_cells = cluster_kernel_checks(tn, ek, device)
     cluster = drive_cluster(Path(__file__).resolve().parent,

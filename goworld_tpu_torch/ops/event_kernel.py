@@ -76,7 +76,10 @@ def event_mask(cells: torch.Tensor, dual: bool,
         (s, rows, cols, LANES, words_per_row(dual)), dtype=torch.int32,
         device=cells.device,
     )
-    with torch.cuda.device(cells.device):
+    # The record names the launch after the C entry point in a
+    # torch.profiler trace (its device kernel is event_mask_kernel).
+    with torch.cuda.device(cells.device), \
+            torch.profiler.record_function("gw_event_mask"):
         stream = torch.cuda.current_stream(cells.device).cuda_stream
         err = _library().gw_event_mask(
             cells.data_ptr(), out.data_ptr(),
@@ -126,7 +129,8 @@ def event_drain(cells: torch.Tensor, plane: torch.Tensor, dual: bool,
     # Scratch: per-cell own-lane event counts, then their exclusive scan.
     counts = torch.empty((n_cells, 2), dtype=torch.int32, device=dev)
     offsets = torch.empty((n_cells, 2), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), \
+            torch.profiler.record_function("gw_event_drain"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _library().gw_event_drain(
             cells.data_ptr(), plane.data_ptr(), words.data_ptr(),

@@ -803,7 +803,14 @@ def _step_packed_tiered(p: NeighborParams, backend: str, programs,
     (n_tiers, near, far) tuple, then the verdict vector when ``verdicts``.
     The step's outputs are (enter_ids, leave_ids, out, fast) on the
     reference backend and (enter_ctx, leave_ctx, out, next_grid, fast) on
-    the kernel backend, followed by the fused outputs when ``programs``."""
+    the kernel backend, followed by the fused outputs when ``programs``.
+    One launch of the step program, counted under the JAX labels
+    (neighbor.py's ``SentinelJit`` wrappers): ``aoi_step_{backend}`` or
+    ``aoi_step_fused_{backend}``; the riding tier and verdict passes are
+    not split out."""
+    sentinel.note_launch(
+        f"aoi_step_fused_{backend}" if programs is not None
+        else f"aoi_step_{backend}")
     if backend == "reference":
         outs = _step_packed_jnp(p, *state, *cur)
     else:
@@ -1136,11 +1143,6 @@ class NeighborEngine:
         outs = _step_packed_tiered(
             self.params, self.backend, programs, tcfg, want_verdicts,
             subj, wat, self._state, cur, extra)
-        # One step dispatch (the JAX labels: neighbor.py's SentinelJit
-        # wrappers); the riding tier and verdict passes are not split out.
-        sentinel.note_launch(
-            f"aoi_step_fused_{self.backend}" if programs is not None
-            else f"aoi_step_{self.backend}")
         verdict_out = tier_out = fused_out = None
         if want_verdicts:
             verdict_out, outs = outs[-1], outs[:-1]

@@ -12,7 +12,11 @@ Ported: ``make_mesh``, the all-gather program ``_sharded_step`` (the strip
 tier's exact fallback) and its fused-logic variant ``_sharded_step_fused``,
 ``_sharded_drain`` and ``ShardedPendingStep``.
 ``ShardedNeighborEngine`` and the kernel slab ``_sharded_step_pallas`` come
-in a later slice.
+in a later slice. Each call of ``_sharded_step`` (``_sharded_step_fused``)
+counts one ``sharded_step`` (``sharded_step_fused``) launch in
+``telemetry.sentinel``, as the JAX module's ``SentinelJit`` wrappers count
+calls of the programs; ``_sharded_drain`` is a page, not a step, and is not
+counted.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from goworld_tpu_torch.ops.neighbor import (
     start_host_copy,
     upload,
 )
+from goworld_tpu_torch.telemetry import sentinel
 
 
 def _normalize(device) -> torch.device:
@@ -93,7 +98,7 @@ def all_gather(xs: list, mesh: list[torch.device], stacked: bool = False):
     return [joined[dev] for dev in mesh]
 
 
-def _sharded_step(
+def _sharded_step_body(
     p: NeighborParams,
     events_inline: int,  # per-shard inline event budget E
     mesh: list[torch.device],
@@ -189,6 +194,13 @@ def _sharded_step(
     return enter_ids, leave_ids, outs
 
 
+def _sharded_step(*args):
+    """The all-gather program (``_sharded_step_body``'s arguments and
+    results), counted as one ``sharded_step`` launch."""
+    sentinel.note_launch("sharded_step")
+    return _sharded_step_body(*args)
+
+
 def _fused_rows(programs, mesh: list[torch.device], pos_l, y_l, yaw_l,
                 sel_l, dt_l, cols_l):
     """The fused entity logic on every shard's LOCAL rows (elementwise, so
@@ -217,8 +229,9 @@ def _sharded_step_fused(
     rows. The spatial engine's exact-fallback ticks use it, so a teleport
     or overflow tick still advances the fused programs; the outputs are in
     ROW space, mapped back through the dispatch-time perm snapshot by the
-    caller."""
-    enter_ids, leave_ids, outs = _sharded_step(
+    caller. One ``sharded_step_fused`` launch."""
+    sentinel.note_launch("sharded_step_fused")
+    enter_ids, leave_ids, outs = _sharded_step_body(
         p, events_inline, mesh,
         ppos_l, pact_l, pspc_l, prad_l,
         pos_l, act_l, spc_l, rad_l,

@@ -37,8 +37,15 @@ Fused entity logic (``logic=``, the service's ``[aoi] fuse_logic``) runs
 each program on the strips' local rows, in the row-permuted layout, on the
 strip tick and on the fallback tick alike.
 
-Not ported yet: the jnp strip backend, the fallback prewarm thread and the
-telemetry counters of the JAX engine.
+Each step program counts its own launches, ``jit_launches_total{fn}``
+with ``fn`` ``spatial_step_kernel`` (``_spatial_step_pallas_impl``) or, on
+a fallback tick, ``sharded_step`` (``parallel.mesh._sharded_step``), with
+``_fused`` appended when entity logic rides it, as the JAX module's
+``SentinelJit`` wrappers count calls of the programs themselves: a
+dispatch that ran two programs counts two. The paging drains
+(``_spatial_drain_bits``) are not steps and stay uncounted. Not ported yet: the jnp
+strip backend, the fallback prewarm thread and the JAX engine's other
+telemetry counters.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from goworld_tpu_torch.parallel.mesh import (
     all_gather,
     shard_rows,
 )
+from goworld_tpu_torch.telemetry import sentinel
 
 _W = 9 * LANES // _PACK  # words per packed mask row
 
@@ -241,7 +249,7 @@ def _scatter_slotown(p: NeighborParams, dst, order, slot_all, chunk: int,
     return plane[:, zi].contiguous()
 
 
-def _spatial_step_pallas_impl(
+def _spatial_step_strips(
     p: NeighborParams,
     events_inline: int,
     halo_cap: int,
@@ -399,6 +407,13 @@ def _spatial_step_pallas_impl(
     return enter_ctx, leave_ctx, outs
 
 
+def _spatial_step_pallas_impl(*args):
+    """The strip step program (``_spatial_step_strips``'s arguments and
+    results), counted as one ``spatial_step_kernel`` launch."""
+    sentinel.note_launch("spatial_step_kernel")
+    return _spatial_step_strips(*args)
+
+
 def _spatial_step_pallas_fused_impl(
     p: NeighborParams,
     events_inline: int,
@@ -419,8 +434,10 @@ def _spatial_step_pallas_fused_impl(
     the same logic contract as the fallback's ``_sharded_step_fused``
     (row-permuted inputs, perm-snapshot writeback). Returns the strip
     step's (enter_ctx, leave_ctx, out) and the fused outputs in ROW order
-    on the first strip's device."""
-    res = _spatial_step_pallas_impl(
+    on the first strip's device. One ``spatial_step_kernel_fused``
+    launch."""
+    sentinel.note_launch("spatial_step_kernel_fused")
+    res = _spatial_step_strips(
         p, events_inline, halo_cap, cols_cap, drain_inline, mesh,
         ppos_l, pact_l, pspc_l, prad_l,
         pos_l, act_l, spc_l, rad_l,

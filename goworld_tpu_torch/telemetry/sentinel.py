@@ -1,17 +1,30 @@
-"""Device-runtime sentinel: launch/trace accounting for the engine steps.
+"""Device-runtime sentinel: launch accounting for the engine steps.
 
 The port's copy of ``goworld_tpu.telemetry.sentinel``: the counter
-families, their configuration and their readers. The port's
-``NeighborEngine.step_async`` bumps ``jit_launches_total{fn}`` once per
-step dispatch (``aoi_step_{backend}``, ``aoi_step_fused_{backend}`` for a
-fused one), so each game's ``/metrics`` shows its device steps. PyTorch
-traces and compiles nothing, so ``jit_traces_total``,
-``jit_retrace_events_total`` and ``jit_cached_traces`` stay 0 and the
-steady-state retrace budget (``[slo] steady_state_retraces``) holds
-trivially. The JAX package's ``SentinelJit`` (a wrapper of ``jax.jit``
-that detects retraces) and its persistent-compile-cache listener have no
-counterpart yet: the launch gate and the profiler route are ROADMAP
-queue 1 item 6.
+families, their configuration and their readers. Each step program of
+the port's engines calls :func:`note_launch` once a call, where the JAX
+package's ``SentinelJit`` wraps its counterpart, so each game's
+``/metrics`` shows its device steps and the scenario runner's one-launch
+gate (``scenarios/runner.py``) sees a dispatch that ran two programs:
+
+- ``ops.neighbor._step_packed_tiered`` (``NeighborEngine``):
+  ``aoi_step_{backend}``, or ``aoi_step_fused_{backend}`` when entity
+  logic rides the step;
+- ``parallel.spatial._spatial_step_pallas_impl`` (a strip tick):
+  ``spatial_step_kernel``; ``parallel.mesh._sharded_step`` (an exact
+  all-gather fallback tick): ``sharded_step``; their fused variants append
+  ``_fused``.
+
+Storm pages (the drains that page an overflowing tick) are not steps and
+are not counted.
+
+The JAX package's ``SentinelJit`` wraps ``jax.jit`` to see a retrace (a
+new trace of an already compiled step, read from the jit's trace cache),
+and a listener forwards jax's persistent compile-cache events. PyTorch
+runs eagerly and traces and compiles nothing, so neither has a
+counterpart: ``jit_traces_total``, ``jit_retrace_events_total`` and
+``jit_cached_traces`` stay 0, :func:`steady_state_retraces` is 0, and the
+``[slo] steady_state_retraces`` budget holds trivially.
 """
 
 from __future__ import annotations

@@ -27,9 +27,11 @@ framework in this image) serving:
   the process hosting the collector (the driver dispatcher); rendered
   live by ``python -m goworld_tpu_torch.tools.gwtop``
 - ``/stack``     — all-thread stack dump (the practical subset of pprof)
-- ``/profile``   — cProfile the main thread for ?seconds=S; ``&mode=jax``
-  answers 400 in the port (a torch.profiler route is ROADMAP queue 1
-  item 6)
+- ``/profile``   — cProfile the main thread for ?seconds=S; ``&mode=torch``
+  instead wraps the window in ``torch.profiler`` (CPU activity, plus the
+  card's kernels when the process has used CUDA) and returns the path of
+  a Chrome trace; ``&mode=jax`` (the JAX package's device trace) answers
+  400 naming ``mode=torch``
 
 SECURITY: this server is unauthenticated and serves state-changing GETs
 (``/heap/start`` toggles ~2x allocation overhead process-wide) and CPU-heavy
@@ -179,20 +181,22 @@ class DebugHTTPServer:
     async def _profile(self, path: str) -> tuple[str, str, bytes]:
         """CPU-profile the process for ?seconds=N (pprof's /profile slot):
         cProfile runs on the main thread, so everything the game/gate/
-        dispatcher loop does in the window is captured. ``&mode=jax``
-        (the JAX package's device trace) answers 400 in the port."""
+        dispatcher loop does in the window is captured. ``&mode=torch``
+        instead wraps the window in ``torch.profiler`` (see
+        :meth:`_profile_torch`); ``&mode=jax`` (the JAX package's device
+        trace) answers 400 naming ``mode=torch``."""
         q = self._query(path)
         seconds = 5.0
         try:
             seconds = min(60.0, max(0.1, float(q.get("seconds", "5"))))
         except ValueError:
             pass
+        if q.get("mode") == "torch":
+            return await self._profile_torch(seconds)
         if q.get("mode") == "jax":
-            # The device-profile route (torch.profiler) belongs to ROADMAP
-            # queue 1 item 6; until then the ask fails loudly.
             return ("400 Bad Request", "application/json", json.dumps({
-                "error": "mode=jax has no counterpart in the port yet; a "
-                         "torch.profiler route is ROADMAP queue 1 item 6",
+                "error": "mode=jax profiles the JAX package's device; this "
+                         "process runs PyTorch: ask for mode=torch",
             }).encode())
         import cProfile
         import io
@@ -205,6 +209,69 @@ class DebugHTTPServer:
         buf = io.StringIO()
         pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(80)
         return "200 OK", "text/plain", buf.getvalue().encode()
+
+    async def _profile_torch(self, seconds: float) -> tuple[str, str, bytes]:
+        """On-demand device profiling: ``torch.profiler`` around an
+        S-second window, CPU activity always and CUDA activity when this
+        process has used the card (every kernel the AOI step launches
+        lands in the trace, named, with its device time). The trace
+        starts and stops here, on the loop thread, so the loop's own ops
+        are recorded; its preparation runs in a thread executor first,
+        because a process's first CUDA trace initialises CUPTI, which
+        takes seconds on an H100 machine and would stall the loop (and
+        its dispatcher heartbeats) that long. The Chrome trace is written
+        from the executor into a fresh temporary directory, and the
+        answer gives its path, the window and the count of device kernels
+        in it. A profiler that cannot start or stop (one already running,
+        no kineto) answers 500 and leaves the loop serving."""
+        import tempfile
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        on_card = torch.cuda.is_available() and torch.cuda.is_initialized()
+        if on_card:
+            activities.append(ProfilerActivity.CUDA)
+        trace_dir = tempfile.mkdtemp(prefix="goworld_torch_trace_")
+        prof = profile(activities=activities)
+        loop = asyncio.get_running_loop()
+        try:
+            await loop.run_in_executor(None, prof.prepare_trace)
+            prof.start_trace()
+        except Exception as exc:
+            return ("500 Internal Server Error", "application/json",
+                    json.dumps({"error": f"torch.profiler did not start: "
+                                         f"{exc}"}).encode())
+        stop_error = None
+        try:
+            await asyncio.sleep(seconds)
+        finally:
+            try:
+                prof.stop_trace()
+            except Exception as exc:
+                stop_error = exc
+        if stop_error is not None:
+            return ("500 Internal Server Error", "application/json",
+                    json.dumps({"error": f"torch.profiler did not stop: "
+                                         f"{stop_error}",
+                                "trace_dir": trace_dir}).encode())
+        trace = f"{trace_dir}/trace.json"
+
+        def export() -> int:
+            prof.export_chrome_trace(trace)
+            return sum(1 for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+
+        kernels = await loop.run_in_executor(None, export)
+        return ("200 OK", "application/json", json.dumps({
+            "trace": trace,
+            "trace_dir": trace_dir,
+            "seconds": seconds,
+            "cuda": on_card,
+            "device_kernels": kernels,
+            "hint": "open the trace in chrome://tracing or Perfetto",
+        }).encode())
 
     async def _heap_types(self) -> tuple[str, str, bytes]:
         """GC census: live instance counts by type (top 40) — tells you

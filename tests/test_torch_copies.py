@@ -1,9 +1,10 @@
 """The port's copies of the JAX package's host modules are the same code.
 
-Every module that the cluster slice copied (the wire, config, telemetry,
+Every module that the port copied (the wire, config, telemetry,
 utilities, storage and kvdb, the dispatcher cluster, services, rebalancing,
-the game, the facade, the dispatcher, the gate, the CLI, the bot client and
-the test game) must equal its JAX original after the package rename
+the game, the facade, the dispatcher, the gate, the CLI, the bot client,
+the test game, the scenarios, the chaos harness, the post-mortem bundles
+and the operator tools) must equal its JAX original after the package rename
 ``goworld_tpu`` -> ``goworld_tpu_torch``: the same ``ast.dump`` with
 docstrings dropped (comments are not in the AST). The hand-edited modules
 are allowed to differ only in the top-level definitions named below, each
@@ -57,6 +58,12 @@ COPIED = [
     "cli.py",
     *(f"client/{n}.py" for n in ("__init__", "__main__", "bot_runner",
                                  "client")),
+    *(f"scenarios/{n}.py" for n in ("__init__", "battle_royale", "hotspot",
+                                    "service_heavy", "runner")),
+    "telemetry/postmortem.py",
+    *(f"chaos/{n}.py" for n in ("__init__", "harness", "multigame",
+                                "botfleet", "mg_server", "game_proc")),
+    *(f"tools/{n}.py" for n in ("__init__", "gwtop", "gwpost")),
 ]
 EXAMPLE = ["__init__.py", "__main__.py", "server.py"]
 C_SOURCES = ["native/fastframe.c", "native/kcpcore.c"]
@@ -76,17 +83,34 @@ EDITED = {
     # Edit 3: start/reload build the CUDA libraries before games spawn
     # (_build_kernels); the help text names the port's game.
     "cli.py": {"_build_kernels", "cmd_start", "cmd_reload", "main"},
-    # Edit 4: the counters, configuration and readers; SentinelJit (a
-    # jax.jit wrapper), its signature helpers, the compile-cache listener
-    # and its two counters wait for queue 1 item 6; note_launch is the
-    # port engines' launch count.
+    # Edit 4: the counters, configuration and readers. SentinelJit (a
+    # jax.jit wrapper that reads retraces from the jit's trace cache), its
+    # signature helpers, the compile-cache listener and its two counters
+    # have no counterpart: PyTorch traces and compiles nothing.
+    # note_launch is the port engines' launch count, called by each step
+    # program where SentinelJit wraps its JAX counterpart
+    # (ops/neighbor.py, parallel/spatial.py and parallel/mesh.py, which
+    # are ports, not copies, so they are not listed here).
     "telemetry/sentinel.py": {"imports", "_CACHE_HITS", "_CACHE_MISSES",
                               "_sig_of", "_sig_delta", "SentinelJit",
                               "_cache_listener_installed",
                               "install_compile_cache_listener",
                               "note_launch"},
-    # Edit 5: /profile?mode=jax answers 400 (queue 1 item 6).
+    # Edit 5: /profile?mode=torch wraps the window in torch.profiler
+    # (_profile_torch, in place of _profile_jax); mode=jax answers 400
+    # naming mode=torch.
     "utils/debug_http.py": {"DebugHTTPServer"},
+    # The scenario runner: make_engine builds the port's engines on a
+    # torch device (no jax platform pin, no device-count check, no
+    # fallback prewarm: nothing compiles lazily), _STEP_LABELS lists the
+    # port's step labels, and run_scenario takes device= and backend= and
+    # names both in the headline (_device_name).
+    "scenarios/runner.py": {"make_engine", "_STEP_LABELS", "_device_name",
+                            "run_scenario"},
+    # The multigame harness spawns the port's game_proc with one torch
+    # thread (OMP_NUM_THREADS=1, ROADMAP queue 3 item 6) where the JAX
+    # harness pins JAX_PLATFORMS=cpu.
+    "chaos/multigame.py": {"MultigameCluster"},
     # A fault fix (ROADMAP queue 3 item 7): games booting together raced
     # the switch of the shared sqlite file to WAL ("database is locked"
     # at once); enable_wal retries it. The JAX package has the same race.

@@ -57,7 +57,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "config", "config.read_config", "facade",
               "examples.test_game", "examples.test_game.server",
               "graft_entry", "native", "netutil", "telemetry.sentinel",
-              "utils.debug_http", "dispatchercluster.cluster"):
+              "utils.debug_http", "dispatchercluster.cluster",
+              "scenarios", "scenarios.runner", "scenarios.hotspot",
+              "scenarios.battle_royale", "scenarios.service_heavy",
+              "telemetry.postmortem", "chaos", "chaos.harness",
+              "chaos.multigame", "chaos.botfleet", "chaos.mg_server",
+              "chaos.game_proc", "tools", "tools.gwtop", "tools.gwpost",
+              "bench"):
         assert f"goworld_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -81,7 +87,9 @@ def test_port_sources_name_no_jax_package_import():
                 "gate/__main__.py", "client/__main__.py",
                 "config/read_config.py", "facade.py",
                 "examples/test_game/__main__.py",
-                "examples/test_game/server.py", "graft_entry.py"):
+                "examples/test_game/server.py", "graft_entry.py",
+                "scenarios/runner.py", "scenarios/service_heavy.py",
+                "chaos/harness.py", "chaos/multigame.py", "bench.py"):
         assert PACKAGE / rel in files
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
