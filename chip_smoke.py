@@ -39,8 +39,19 @@ toolkit. It
    brute force; holds both drain forms against their plain version at one
    strip's slab and at a lattice slab whose events overflow the inline
    budget, and times them;
+   then ``entity_1m``: the same world through the entity-sharded engine
+   (8 shards on the card, the slab program: each shard launches the mask
+   forms on its 16 grid rows), the storm, a first steady tick, 10
+   pipelined and 5 synchronous steady ticks and a slow tick, each held
+   against the single-device engine, a sample against brute force, 8
+   launches of each mask form a tick; both mask forms held against their
+   plain version at a shard's slab, and timed;
 8. drives ``service_10k``: the port's runtime and batched AOI service at
-   10,240 avatars (BASELINE.json config 2), fused logic off then on;
+   10,240 avatars (BASELINE.json config 2), fused logic off then on; then
+   ``entity_service``: that world on an 8-shard entity-sharded service for
+   10 ticks, its delivered interest sets equal to the single-device
+   service's after every tick, and both mask forms held against their
+   plain version at shard 0's slab of its last dispatch, and timed;
 9. ``scenarios``: the scenario matrix (``hotspot``, ``battle_royale``,
    ``service_heavy``, each at its registered config) through
    ``run_scenario`` on the card, on the batched engine (the mask forms)
@@ -68,7 +79,17 @@ toolkit. It
    one game's ``/profile?mode=torch`` window must trace the card's
    kernels and the event kernel's launch (``gw_event_mask``); their summed
    device time over the window is the game's busy share. It also runs
-   ``graft_entry.entry()`` once on the card against the reference step.
+   ``graft_entry.entry()`` once on the card against the reference step;
+11. ``multihost``: two processes of this script (``--multihost-worker``)
+   on the card, 4 shards each, one Gloo group: on both backends the union
+   of their events equals the single-device engine's stream each tick, and
+   the process gather's time is printed; both mask forms are held against
+   their plain version at the slab shard 0 launched them on (copied: 4
+   space slots), and timed;
+12. ``multihost_cluster``: the two-game ``[aoi] multihost_coordinator``
+   deployment of the JAX package's tests/test_multihost.py, started by the
+   port's CLI with both games on the card, 10 strict bots across a reload,
+   zero errors, each game joining the group twice.
 
 The kernels are built first, all at once. It prints bench.py's metrics, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -117,6 +138,14 @@ STRIPS_ACTIVE = 917504
 STRIPS_N = 8
 STRIPS_PIPELINED = 20
 STRIPS_SYNC = 10
+# entity_1m: the same world through the entity-sharded tier
+# (parallel/mesh.py ShardedNeighborEngine, the slab kernel): 8 shards on
+# the one card, 16 grid rows a shard's slab; the storm, a first steady
+# tick, 10 pipelined and 5 synchronous steady ticks, a slow tick (1%
+# despawned).
+ENTITY_N = 8
+ENTITY_PIPELINED = 10
+ENTITY_SYNC = 5
 # BASELINE.json's config 2 ("examples/test_game synthetic: 10k random-walk
 # entities, 1 Space, TPUAOIManager on 1 chip") through the port's entity
 # runtime and batched AOI service: 10,240 columnar avatars drifting at
@@ -138,6 +167,73 @@ SERVICE_WARM = 3
 SERVICE_TICKS = 60
 SERVICE_DT = 1.0
 SERVICE_LOGOUT_TICK = SERVICE_WARM + 45
+# entity_service: service_10k's world and avatars with [aoi] mesh_shards = 8
+# and shard_mode = entity (the entity-sharded engine, 8 shards on the card),
+# unfused, 10 ticks, against the single-device service on the same ticks.
+# The tier needs whole 8-row chunks a shard and one slab of grid rows a
+# shard: 10,304 slots (the next multiple of 64) and 16x16 cells of 300 (a
+# torus wider than service_10k's 4,200-unit world, which is kept, so no
+# cell folds).
+ENTITY_SERVICE = dict(SERVICE, capacity=10304, grid_x=16, grid_z=16)
+ENTITY_SERVICE_SHARDS = 8
+ENTITY_SERVICE_TICKS = 10
+# multihost: two OS processes on the one card, 4 shards each, over Gloo on
+# 127.0.0.1 (parallel/multihost.py), on the world of the JAX package's
+# tests/test_parallel.py test_sharded_structural_at_scale: 65,536 slots,
+# 64x64 cells of 100, 4 space slots, cell capacity 64, max_events 8,192
+# (1,024 a shard, so the storm pages every shard), radius 80, 64 spaces,
+# a half of the slots always active and the other half at 50%; the storm,
+# then ticks of N(0, 3) drift.
+MULTIHOST = dict(capacity=65536, cell_size=100.0, grid_x=64, grid_z=64,
+                 space_slots=4, cell_capacity=64, max_events=8192)
+MULTIHOST_PROCS = 2
+MULTIHOST_LOCAL = 4
+MULTIHOST_TICKS = 12
+# multihost_cluster: the JAX package's tests/test_multihost.py
+# MH_CLUSTER_INI (1 dispatcher, 2 games, 1 gate, [aoi]
+# multihost_coordinator) started by the port's CLI with [aoi] platform =
+# auto, so both games' services share the card; each game's debug HTTP on
+# for /metrics. 10 strict bots for 30 s, a reload at 15 s.
+MH_CLUSTER_BOTS = 10
+MH_CLUSTER_RUN_S = 30.0
+MH_CLUSTER_RELOAD_S = 15.0
+MH_CLUSTER_INI = """\
+[deployment]
+dispatchers = 1
+games = 2
+gates = 1
+
+[dispatcher1]
+port = {disp}
+
+[game_common]
+boot_entity = Account
+save_interval = 600
+
+[game1]
+http_addr = 127.0.0.1:{http1}
+
+[game2]
+http_addr = 127.0.0.1:{http2}
+
+[gate1]
+port = {gate}
+heartbeat_timeout = 60
+
+[storage]
+type = filesystem
+directory = {dir}/es
+
+[kvdb]
+type = sqlite
+directory = {dir}/kv
+
+[aoi]
+backend = tpu
+platform = auto
+max_entities = 512
+multihost_coordinator = 127.0.0.1:{coord}
+"""
 # The drain forms' small check: the lattice grid's slot/own plane, and an
 # inline budget its events overflow.
 LATTICE_CAPACITY = 8192
@@ -490,11 +586,16 @@ def hold_kernel(ek, cells, dual, skip=None) -> int:
 
 
 def kernel_checks(tn, ek, p, pos, ppos, space, device, active=None):
-    """Each form against its plain version, at the given tick's cells, a
-    small lattice grid and a skip-edge grid, the single form also with a
-    false skip flag; times at the tick's cells, and the single form's
-    launch with a true skip flag."""
-    head = steady_cells(tn, p, pos, ppos, space, device, active)
+    """``cell_checks`` at the given tick's cells."""
+    return cell_checks(ek, steady_cells(tn, p, pos, ppos, space, device,
+                                        active), device)
+
+
+def cell_checks(ek, head, device):
+    """Each form against its plain version, at the cells ``head``, a small
+    lattice grid and a skip-edge grid, the single form also with a false
+    skip flag; times at ``head``, and the single form's launch with a true
+    skip flag."""
     small = [torch.tensor(lattice_cells(2, 6, 5, seed=1), device=device),
              torch.tensor(skip_edge_cells(2, 6, 5, seed=5), device=device)]
     ops = event_ops(ek, head)
@@ -525,7 +626,7 @@ def kernel_checks(tn, ek, p, pos, ppos, space, device, active=None):
               f"grids {tuple(small[0].shape)} and {tuple(head.shape)}; "
               f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
-    del head, small
+    del small
     torch.cuda.empty_cache()
     return rows
 
@@ -1093,6 +1194,597 @@ def drive_strips(tn, ek, ts, make_mesh, device):
     return metrics, rows
 
 
+def drive_entity(tn, ek, tm, make_mesh, device):
+    """BASELINE config 5 through the entity-sharded tier (entity_1m; the
+    world of strips_1m): ENTITY_N shards on one card, each launching the
+    mask forms on its slab of grid rows. The enter storm, a first steady
+    tick (shard 0's slab kept for the kernel checks), ENTITY_PIPELINED
+    pipelined and ENTITY_SYNC synchronous steady ticks and a slow tick (1%
+    despawned), with the launch counts zeroed just before and read just
+    after: each shard launches each mask form once a tick. Then every tick
+    again through the single-device engine on the card, a sample against
+    brute force, and both mask forms against their plain version at the
+    kept slab."""
+    from goworld_tpu_torch.telemetry import sentinel
+
+    p = tn.NeighborParams(**STRIPS)
+    n = p.capacity
+    world = p.grid_x * p.cell_size
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0, world, (n, 2)).astype(np.float32)
+    active = np.arange(n) < STRIPS_ACTIVE
+    space = np.zeros(n, np.int32)
+    radius = np.full(n, 100.0, np.float32)
+    vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+    mesh = make_mesh(ENTITY_N, device)
+    eng = tm.ShardedNeighborEngine(p, mesh)
+    if eng.backend != "kernel":
+        raise AssertionError("the default entity-sharded engine is not the "
+                             "slab kernel")
+    rows = p.grid_z // ENTITY_N
+    eng.reset()
+    ticks = []  # (label, world, out)
+    paged = []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ek.reset_launch_counts()
+    steps0 = sentinel.launches_total("sharded_step_kernel")
+
+    def world_now():
+        return (pos.copy(), active.copy(), space, radius)
+
+    def step(label, meta_dirty=True):
+        w = world_now()
+        pend = eng.step_async(*w, meta_dirty=meta_dirty)
+        out = pend.collect()
+        ticks.append((label, w, out))
+        paged.append(pend.paged)
+        return out
+
+    t0 = time.perf_counter()
+    storm = step("storm")
+    storm_ms = (time.perf_counter() - t0) * 1e3
+
+    # The first steady tick, with shard 0's current slab kept.
+    kept = {}
+    mask = tm.event_mask
+
+    def keep_slab(cells, dual, *args, **kw):
+        if dual and not kept:
+            kept["slab"] = cells.clone()
+        return mask(cells, dual, *args, **kw)
+
+    walk(pos, vel, world)
+    tm.event_mask = keep_slab
+    try:
+        step("tick 1", meta_dirty=False)
+    finally:
+        tm.event_mask = mask
+
+    dispatch_s, collect_s = [], []
+    pending = None
+    t_all0 = time.perf_counter()
+    for k in range(ENTITY_PIPELINED + 1):
+        nxt = None
+        if k < ENTITY_PIPELINED:
+            walk(pos, vel, world)
+            w = world_now()
+            t0 = time.perf_counter()
+            pend = eng.step_async(*w, meta_dirty=False)
+            dispatch_s.append(time.perf_counter() - t0)
+            nxt = (f"pipelined {k + 2}", w, pend)
+        if pending is not None:
+            label, w_prev, pend_prev = pending
+            t0 = time.perf_counter()
+            out = pend_prev.collect()
+            collect_s.append(time.perf_counter() - t0)
+            ticks.append((label, w_prev, out))
+            paged.append(pend_prev.paged)
+        pending = nxt
+    t_all = time.perf_counter() - t_all0
+
+    drain_s = []
+    for j in range(ENTITY_SYNC):
+        walk(pos, vel, world)
+        w = world_now()
+        pend = eng.step_async(*w, meta_dirty=False)
+        pend.wait_device()
+        t0 = time.perf_counter()
+        out = pend.collect()
+        drain_s.append(time.perf_counter() - t0)
+        ticks.append((f"sync {j}", w, out))
+        paged.append(pend.paged)
+
+    despawn = rng.choice(np.flatnonzero(active), STRIPS_ACTIVE // 100,
+                         replace=False)
+    active[despawn] = False
+    t0 = time.perf_counter()
+    step("slow")
+    slow_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(ek.launches)
+    steps = sentinel.launches_total("sharded_step_kernel") - steps0
+    peak = torch.cuda.max_memory_allocated()
+
+    for form in ek.FORMS:
+        if launches[form] != len(ticks) * ENTITY_N:
+            raise AssertionError(f"entity_1m: launches {launches} for "
+                                 f"{len(ticks)} ticks of {ENTITY_N} shards")
+    if steps != len(ticks):
+        raise AssertionError(f"entity_1m: {steps} step programs for "
+                             f"{len(ticks)} ticks")
+    for label, _, out in ticks:
+        check_pairs(out[0], n, f"entity_1m {label} enters")
+        check_pairs(out[1], n, f"entity_1m {label} leaves")
+    metrics = {
+        "config": {**STRIPS, "active": STRIPS_ACTIVE, "shards": ENTITY_N,
+                   "slab_rows": rows, "backend": eng.backend,
+                   "devices": [str(d) for d in mesh]},
+        "sharded_updates_per_sec": ENTITY_PIPELINED / t_all * n,
+        "ticks_per_sec": ENTITY_PIPELINED / t_all,
+        "events_per_tick": float(np.mean([
+            len(tk[2][0]) + len(tk[2][1]) for tk in ticks
+            if tk[0].startswith("pipelined")])),
+        "allgather_equiv_bytes_per_tick": eng.allgather_bytes_per_tick,
+        "dispatch_p50_ms": pct(dispatch_s, 50),
+        "dispatch_p99_ms": pct(dispatch_s, 99),
+        "collect_p50_ms": pct(collect_s, 50),
+        "collect_p99_ms": pct(collect_s, 99),
+        "post_step_drain_p50_ms": pct(drain_s, 50),
+        "paged_shard_sides": paged,
+        "storm_events": len(storm[0]),
+        "storm_ms": storm_ms,
+        "slow_tick_ms": slow_ms,
+        "dropped": [tk[2][2] for tk in ticks],
+        "peak_memory_allocated_bytes": peak,
+        "step_programs": steps,
+        "launches": launches,
+    }
+    slab = kept["slab"]
+    del eng, pend, pend_prev, kept
+    torch.cuda.empty_cache()
+
+    single = tn.NeighborEngine(p, backend="kernel", device=device)
+    single.reset()
+    sample = SampleSets(n, seed=3)
+    for label, w, out in ticks:
+        want = single.step(*w)
+        for k, side in ((0, "enters"), (1, "leaves")):
+            if (len(want[k]) != len(out[k])
+                    or not np.array_equal(pair_keys(want[k], n),
+                                          pair_keys(out[k], n))):
+                raise AssertionError(f"entity_1m {label}: {side} differ "
+                                     f"from the single-device engine")
+        if want[2] != out[2]:
+            raise AssertionError(f"entity_1m {label}: dropped differs")
+        sample.apply(out[0], out[1])
+    print(f"entity_1m: {len(ticks)} ticks equal to the single-device engine",
+          flush=True)
+    sample.check(*ticks[-1][1], device, "entity_1m")
+    del single
+    torch.cuda.empty_cache()
+    if tuple(slab.shape) != (p.space_slots, rows + 2, p.grid_x + 2, 8, 128):
+        raise AssertionError(f"entity_1m: kept slab {tuple(slab.shape)}")
+    kernel_rows = cell_checks(ek, slab, device)
+    for row in kernel_rows:
+        row["launches"] = launches[row["name"]]
+        row["slab"] = list(slab.shape)
+    return metrics, kernel_rows
+
+
+def slab_entry(row):
+    """A mask form's entry for one sharded phase in the kernels line: the
+    phase's launches, the slab it was held at, its times and bound."""
+    return {k: row[k] for k in (
+        "launches", "slab", "ms", "plain_ms", "bound_ms", "bound_by",
+        "max_abs_err", *(("skipped_ms",) if "skipped_ms" in row else ()))}
+
+
+def entity_service_run(em, tn, device, shards):
+    """ENTITY_SERVICE_TICKS ticks of the service_10k world (unfused, no
+    cadence tiers) on a service with ``shards`` entity shards (1: the
+    single-device engine). Returns each tick's delivered interest pairs
+    (sorted watcher * n + other keys, the last after the flush), the tick
+    seconds and the service's engine."""
+    rt, svc, ents, _, clock, _ = service_world(
+        em, tn, device, False, config=ENTITY_SERVICE, tiers=None,
+        entity_shards=shards)
+    n = svc.engine.params.capacity
+
+    def interest():
+        return np.sort(np.fromiter(
+            (e._slot * n + o._slot for e in ents for o in e.interested_in),
+            np.int64))
+
+    sets, tick_s = [], []
+    for _ in range(ENTITY_SERVICE_TICKS):
+        t = time.perf_counter()
+        service_tick(rt, svc, clock)
+        tick_s.append(time.perf_counter() - t)
+        sets.append(interest())
+    svc.flush()
+    sets.append(interest())
+    engine = svc.engine
+    em.cleanup_for_tests()
+    return sets, tick_s, engine
+
+
+def drive_entity_service(tn, ek, tm, device):
+    """entity_service: ENTITY_SERVICE_TICKS ticks of the service_10k world
+    on an entity-sharded service (ENTITY_SERVICE_SHARDS shards on the card),
+    with the launch counts zeroed just before and read just after, then the
+    same ticks on the single-device service: the delivered interest sets
+    equal after every tick and after the flush. Then both mask forms
+    against their plain version at shard 0's slab of the last dispatch."""
+    from goworld_tpu_torch.entity import entity_manager as em
+
+    # Each dispatch launches the dual form once a shard, in shard order:
+    # shard 0's slab of the last dispatch is kept for the kernel checks.
+    kept = {"dual": 0}
+    mask = tm.event_mask
+
+    def keep_slab(cells, dual, *args, **kw):
+        if dual:
+            if kept["dual"] % ENTITY_SERVICE_SHARDS == 0:
+                kept["slab"] = cells.clone()
+            kept["dual"] += 1
+        return mask(cells, dual, *args, **kw)
+
+    torch.cuda.synchronize()
+    ek.reset_launch_counts()
+    tm.event_mask = keep_slab
+    try:
+        sharded, tick_s, eng = entity_service_run(em, tn, device,
+                                                  ENTITY_SERVICE_SHARDS)
+    finally:
+        tm.event_mask = mask
+    torch.cuda.synchronize()
+    launches = dict(ek.launches)
+    if not isinstance(eng, tm.ShardedNeighborEngine) or (
+            eng.backend != "kernel"
+            or eng.n_devices != ENTITY_SERVICE_SHARDS):
+        raise AssertionError(f"entity_service: the service's engine is "
+                             f"{type(eng).__name__}")
+    single, single_s, _ = entity_service_run(em, tn, device, 1)
+    for k, (a, b) in enumerate(zip(sharded, single)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"entity_service: tick {k}'s interest sets "
+                                 f"({len(a)} pairs) differ from the single-"
+                                 f"device service's ({len(b)} pairs)")
+    # Each shard launches each mask form once a dispatch: the warmup, the
+    # ticks, and the warm-up step of each capacity tier grown on the way.
+    for form in ek.FORMS:
+        if launches[form] < (ENTITY_SERVICE_TICKS + 1) * ENTITY_SERVICE_SHARDS:
+            raise AssertionError(f"entity_service: launches {launches}")
+    print(f"entity_service: {ENTITY_SERVICE_TICKS} ticks and the flush, "
+          f"interest sets equal to the single-device service's "
+          f"({len(sharded[-1])} pairs at the flush)", flush=True)
+    p = eng.params
+    slab = kept["slab"]
+    rows = p.grid_z // ENTITY_SERVICE_SHARDS
+    if kept["dual"] % ENTITY_SERVICE_SHARDS or tuple(slab.shape) != (
+            p.space_slots, rows + 2, p.grid_x + 2, 8, 128):
+        raise AssertionError(f"entity_service: kept slab "
+                             f"{tuple(slab.shape)} of {kept['dual']} dual "
+                             f"launches")
+    kernel_rows = cell_checks(ek, slab, device)
+    for row in kernel_rows:
+        row["launches"] = launches[row["name"]]
+        row["slab"] = list(slab.shape)
+    return {
+        "config": {**ENTITY_SERVICE, "shards": ENTITY_SERVICE_SHARDS,
+                   "shard_mode": "entity", "entities": SERVICE_ENTITIES,
+                   "radius": SERVICE_RADIUS, "ticks": ENTITY_SERVICE_TICKS},
+        "tick_p50_ms": pct(tick_s, 50),
+        "single_device_tick_p50_ms": pct(single_s, 50),
+        "interest_pairs": [len(x) for x in sharded],
+        "launches": launches,
+    }, kernel_rows
+
+
+def multihost_world(n):
+    """The multihost phase's world (see MULTIHOST): (rng, pos, active,
+    space, radius)."""
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(0, 6400, (n, 2)).astype(np.float32)
+    active = np.ones(n, bool)
+    active[n // 2:] = rng.random(n - n // 2) < 0.5
+    space = rng.integers(0, 64, n).astype(np.int32)
+    radius = np.full(n, 80.0, np.float32)
+    return rng, pos, active, space, radius
+
+
+def multihost_drift(rng, pos):
+    return np.clip(pos + rng.normal(0, 3, pos.shape), 0,
+                   6400).astype(np.float32)
+
+
+def multihost_worker(rank: int, coord: str, outfile: str) -> int:
+    """One process of the multihost phase: joins the group, steps both
+    backends' engines with its own rows over MULTIHOST_TICKS ticks, and
+    saves its events, its gather and step times and its kernel launches;
+    rank 0 also global shard 0's slab of the kernel backend's tick 1."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from goworld_tpu_torch.ops import event_kernel as ek
+    from goworld_tpu_torch.ops.neighbor import NeighborParams
+    from goworld_tpu_torch.parallel import mesh as tm
+    from goworld_tpu_torch.parallel.mesh import make_mesh
+    from goworld_tpu_torch.parallel.multihost import (
+        MultiHostNeighborEngine,
+        init_multihost,
+    )
+
+    init_multihost(coord, MULTIHOST_PROCS, rank, timeout_s=300.0)
+    p = NeighborParams(**MULTIHOST)
+    dump = {}
+    # Rank 0's first local shard is global shard 0: its slab (copied, with
+    # several space slots) of the kernel backend's tick 1 is kept.
+    kept = {}
+    mask = tm.event_mask
+
+    def keep_slab(cells, dual, *args, **kw):
+        if dual and not kept:
+            kept["slab"] = cells.clone()
+        return mask(cells, dual, *args, **kw)
+    for backend in ("reference", "kernel"):
+        eng = MultiHostNeighborEngine(
+            p, make_mesh(MULTIHOST_LOCAL, "cuda"), backend=backend)
+        eng.reset()
+        torch.cuda.synchronize()
+        ek.reset_launch_counts()
+        rng, pos, active, space, radius = multihost_world(p.capacity)
+        lo, lc = eng.local_lo, eng.local_capacity
+        gather, step = [], []
+        for tick in range(MULTIHOST_TICKS):
+            keep = backend == "kernel" and tick == 1 and rank == 0
+            if keep:
+                tm.event_mask = keep_slab
+            t0 = time.perf_counter()
+            try:
+                pend = eng.step_async(pos[lo:lo + lc], active[lo:lo + lc],
+                                      space[lo:lo + lc], radius[lo:lo + lc])
+                e, l, dropped = pend.collect()
+            finally:
+                tm.event_mask = mask
+            step.append(time.perf_counter() - t0)
+            gather.append(pend.gather_ms)
+            dump[f"{backend}_enter_{tick}"] = e
+            dump[f"{backend}_leave_{tick}"] = l
+            dump[f"{backend}_dropped_{tick}"] = np.array([dropped])
+            pos = multihost_drift(rng, pos)
+        torch.cuda.synchronize()
+        dump[f"{backend}_gather_ms"] = np.array(gather)
+        dump[f"{backend}_step_ms"] = np.array(step) * 1000.0
+        dump[f"{backend}_launches"] = np.array(
+            [ek.launches[f] for f in ek.FORMS])
+        dump["local_lo"] = np.array([lo])
+        dump["local_capacity"] = np.array([lc])
+    if rank == 0:
+        dump["kernel_slab"] = kept["slab"].cpu().numpy()
+    dist.barrier()
+    dist.destroy_process_group()
+    np.savez(outfile, **dump)
+    print(f"multihost worker {rank}: ok", flush=True)
+    return 0
+
+
+def drive_multihost(tn, ek, root: Path, device):
+    """multihost: MULTIHOST_PROCS OS processes of this script on the card,
+    MULTIHOST_LOCAL shards each, one Gloo group; both backends. Each tick
+    the union of the processes' events equals the single-device engine's on
+    the card, with every pair once; under "reference" each process holds
+    exactly its own rows' events; the storm pages. Reports the gather's and
+    the step's times. Then both mask forms against their plain version at
+    the slab rank 0 kept (the copied slab of 4 space slots)."""
+    import os
+    import shutil
+
+    run_dir = root / "multihost_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    coord = f"127.0.0.1:{free_port()}"
+    outs = [run_dir / f"worker{i}.npz" for i in range(MULTIHOST_PROCS)]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "chip_smoke.py"), "--multihost-worker",
+         str(i), coord, str(outs[i])],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(MULTIHOST_PROCS)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for i, (proc, log) in enumerate(zip(procs, logs)):
+        (run_dir / f"worker{i}.log").write_text(log)
+        if proc.returncode != 0:
+            raise AssertionError(f"multihost: worker {i} failed "
+                                 f"({proc.returncode}):\n{log[-3000:]}")
+    data = [dict(np.load(f)) for f in outs]
+    p = tn.NeighborParams(**MULTIHOST)
+    n = p.capacity
+    single = tn.NeighborEngine(p, backend="kernel", device=device)
+    single.reset()
+    rng, pos, active, space, radius = multihost_world(n)
+    want = []
+    for _ in range(MULTIHOST_TICKS):
+        want.append(single.step(pos, active, space, radius))
+        pos = multihost_drift(rng, pos)
+    del single
+    spans = [(int(d["local_lo"][0]), int(d["local_capacity"][0]))
+             for d in data]
+    if spans != [(k * n // MULTIHOST_PROCS, n // MULTIHOST_PROCS)
+                 for k in range(MULTIHOST_PROCS)]:
+        raise AssertionError(f"multihost: row spans {spans}")
+    metrics = {"config": {**MULTIHOST, "processes": MULTIHOST_PROCS,
+                          "local_shards": MULTIHOST_LOCAL,
+                          "ticks": MULTIHOST_TICKS, "backend": "gloo"},
+               "backends": {}}
+    for backend in ("reference", "kernel"):
+        for tick, (we, wl, wd) in enumerate(want):
+            for k, side, w in ((0, "enter", we), (1, "leave", wl)):
+                union = np.concatenate([d[f"{backend}_{side}_{tick}"]
+                                        for d in data])
+                if len(union) != len(w) or not np.array_equal(
+                        pair_keys(union, n), pair_keys(w, n)):
+                    raise AssertionError(
+                        f"multihost {backend} tick {tick}: the processes' "
+                        f"{side}s ({len(union)}) differ from the single-"
+                        f"device engine's ({len(w)})")
+                if backend == "reference":
+                    for lo, lc in spans:
+                        mine = ((union[:, 0] >= lo)
+                                & (union[:, 0] < lo + lc)).sum()
+                        d = data[spans.index((lo, lc))]
+                        if mine != len(d[f"{backend}_{side}_{tick}"]):
+                            raise AssertionError(
+                                f"multihost reference tick {tick}: a "
+                                f"process got another's rows' {side}s")
+            for d in data:
+                if int(d[f"{backend}_dropped_{tick}"][0]) != wd:
+                    raise AssertionError(f"multihost {backend} tick {tick}: "
+                                         f"dropped differs")
+        if len(want[0][0]) <= p.max_events:
+            raise AssertionError("multihost: the storm did not page")
+        gather = np.concatenate([d[f"{backend}_gather_ms"][1:]
+                                 for d in data])
+        step = np.concatenate([d[f"{backend}_step_ms"][1:] for d in data])
+        launches = sum(d[f"{backend}_launches"] for d in data)
+        metrics["backends"][backend] = {
+            "gather_p50_ms": float(np.percentile(gather, 50)),
+            "gather_p99_ms": float(np.percentile(gather, 99)),
+            "storm_gather_ms": [float(d[f"{backend}_gather_ms"][0])
+                                for d in data],
+            "step_p50_ms": float(np.percentile(step, 50)),
+            "step_p99_ms": float(np.percentile(step, 99)),
+            "launches": dict(zip(ek.FORMS, map(int, launches))),
+        }
+        if backend == "kernel" and any(
+                v != MULTIHOST_TICKS * MULTIHOST_PROCS * MULTIHOST_LOCAL
+                for v in metrics["backends"][backend]["launches"].values()):
+            raise AssertionError(f"multihost: kernel launches "
+                                 f"{metrics['backends'][backend]}")
+    metrics["storm_enters"] = len(want[0][0])
+    print(f"multihost: {MULTIHOST_PROCS} processes x {MULTIHOST_LOCAL} "
+          f"shards, both backends, {MULTIHOST_TICKS} ticks equal to the "
+          f"single-device engine", flush=True)
+    slab = torch.tensor(data[0]["kernel_slab"], device=device)
+    rows = p.grid_z // (MULTIHOST_PROCS * MULTIHOST_LOCAL)
+    if tuple(slab.shape) != (p.space_slots, rows + 2, p.grid_x + 2, 8, 128):
+        raise AssertionError(f"multihost: kept slab {tuple(slab.shape)}")
+    kernel_rows = cell_checks(ek, slab, device)
+    for row in kernel_rows:
+        row["launches"] = metrics["backends"]["kernel"]["launches"][
+            row["name"]]
+        row["slab"] = list(slab.shape)
+    del data, slab
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return metrics, kernel_rows
+
+
+def drive_multihost_cluster(root: Path, device_name: str):
+    """multihost_cluster (see MH_CLUSTER_INI): the port's CLI starts the
+    deployment, both games join one group and run their AOI services on the
+    card in lockstep; MH_CLUSTER_BOTS strict bots for MH_CLUSTER_RUN_S with
+    a live reload at MH_CLUSTER_RELOAD_S; zero errors, each game's log
+    naming the card and the join twice, each game counting AOI steps in
+    both incarnations. The cluster is killed in a ``finally`` and no
+    process of it may be left."""
+    import asyncio
+    import shutil
+
+    from goworld_tpu_torch.client.bot_runner import run_fleet
+
+    run_dir = root / "multihost_cluster_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    ports = {k: free_port() for k in ("disp", "gate", "coord", "http1",
+                                      "http2")}
+    (run_dir / "goworld.ini").write_text(MH_CLUSTER_INI.format(
+        dir=run_dir, **ports))
+    https = {"game1": ports["http1"], "game2": ports["http2"]}
+    joined = "AOI multihost mesh joined: 2 processes"
+
+    def steps():
+        return {g: game_reading(port)["steps"].get("sharded_step", 0.0)
+                for g, port in https.items()}
+
+    async def scenario():
+        fleet = asyncio.create_task(run_fleet(
+            MH_CLUSTER_BOTS, [("127.0.0.1", ports["gate"])],
+            MH_CLUSTER_RUN_S, strict=True, seed=11, thing_timeout=40.0))
+        await asyncio.sleep(MH_CLUSTER_RELOAD_S)
+        before = await asyncio.to_thread(steps)
+        t0 = time.perf_counter()
+        r = await asyncio.to_thread(cluster_cli, root, run_dir, "reload",
+                                    CLUSTER_SERVER)
+        reload_s = time.perf_counter() - t0
+        if r.returncode != 0 or "reload complete" not in r.stdout:
+            raise AssertionError(f"multihost_cluster: reload failed:\n"
+                                 f"{r.stdout}\n{r.stderr}")
+        return await fleet, before, reload_s
+
+    t_all = time.perf_counter()
+    try:
+        r = cluster_cli(root, run_dir, "start", CLUSTER_SERVER)
+        if r.returncode != 0 or "cluster started" not in r.stdout:
+            raise AssertionError(f"multihost_cluster: start failed:\n"
+                                 f"{r.stdout}\n{r.stderr}")
+        report, before, reload_s = asyncio.run(scenario())
+        after = steps()
+        if report["errors"]:
+            raise AssertionError(f"multihost_cluster: "
+                                 f"{len(report['errors'])} errors: "
+                                 f"{report['errors'][:5]}")
+        done = {k: v["count"] for k, v in report["things"].items()}
+        logs = {g: (run_dir / f"{g}.out.log").read_text() for g in https}
+        for g, text in logs.items():
+            if text.count(joined) < 2:
+                raise AssertionError(f"multihost_cluster: {g} joined the "
+                                     f"group {text.count(joined)} times")
+            for k in (0, 1):
+                if ("AOI device: cuda" not in incarnation(text, k)
+                        or device_name not in incarnation(text, k)):
+                    raise AssertionError(f"multihost_cluster: {g}'s "
+                                         f"incarnation {k} does not name "
+                                         f"the card")
+            if before[g] <= 0 or after[g] <= 0:
+                raise AssertionError(f"multihost_cluster: {g} counted no "
+                                     f"AOI step: {before[g]}, {after[g]}")
+        r = cluster_cli(root, run_dir, "stop", CLUSTER_SERVER)
+        if r.returncode != 0:
+            raise AssertionError(f"multihost_cluster: stop failed:\n"
+                                 f"{r.stdout}")
+        print(f"multihost_cluster: {MH_CLUSTER_BOTS} strict bots, zero "
+              f"errors, both games joined twice", flush=True)
+        return {
+            "shape": "1 dispatcher x 2 games x 1 gate, [aoi] "
+                     "multihost_coordinator, platform auto",
+            "bots": MH_CLUSTER_BOTS, "run_s": MH_CLUSTER_RUN_S,
+            "errors": 0, "things": done, "timeouts": report["timeouts"],
+            "reload_at_s": MH_CLUSTER_RELOAD_S, "reload_window_s": reload_s,
+            "joins": {g: t.count(joined) for g, t in logs.items()},
+            "aoi_steps_first_incarnation": before,
+            "aoi_steps_restored": after,
+            "seconds": time.perf_counter() - t_all,
+        }
+    finally:
+        cluster_cli(root, run_dir, "kill", CLUSTER_SERVER, timeout=120)
+        deadline = time.monotonic() + 30
+        while cluster_procs(run_dir) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = cluster_procs(run_dir)
+        if left:
+            raise AssertionError(f"multihost_cluster: processes left: {left}")
+
+
 def boids_params(tb, cell):
     """bench_boids's configuration at one supercell size: the grid keeps the
     world's side within half a cell."""
@@ -1496,11 +2188,14 @@ def interest_pairs(pos, active, space, radius, device):
     return np.sort(np.concatenate(keys))
 
 
-def service_world(em, tn, device, fuse):
+def service_world(em, tn, device, fuse, config=SERVICE, tiers=SERVICE_TIERS,
+                  entity_shards=1):
     """The service_10k world (see SERVICE) built through the port's
     runtime: returns (runtime, service, avatars, their class, the fixed
     clock, the spawn seconds). The service is the runtime's default, on
-    the card; on another ``device`` only to rehearse."""
+    the card; on another ``device`` only to rehearse. ``config`` is the
+    engine's params, ``tiers`` the [sync] cadences (None: no tiers) and
+    ``entity_shards`` > 1 the entity-sharded tier's shards."""
     from goworld_tpu_torch.entity.columns import columnar_tick
     from goworld_tpu_torch.entity.entity import Entity
     from goworld_tpu_torch.entity.slabs import SyncTuning
@@ -1529,8 +2224,11 @@ def service_world(em, tn, device, fuse):
     rt.aoi_backend = "batched"
     rt.aoi_device = None if device.type == "cuda" else str(device)
     rt.aoi_fuse_logic = fuse
-    rt.aoi_params = tn.NeighborParams(**SERVICE)
-    rt.slabs.configure_sync(SyncTuning(tier_cadences=SERVICE_TIERS))
+    rt.aoi_params = tn.NeighborParams(**config)
+    rt.aoi_mesh_shards = entity_shards
+    rt.aoi_shard_mode = "entity"
+    if tiers is not None:
+        rt.slabs.configure_sync(SyncTuning(tier_cadences=tiers))
     em.register_space(ServiceSpace)
     em.register_entity(Walker)
     svc = rt.get_aoi_service()
@@ -1556,7 +2254,7 @@ def service_world(em, tn, device, fuse):
         svc._prewarm_thread.join()
     eng = svc.engine
     want_backend = "kernel" if device.type == "cuda" else eng.backend
-    if eng.backend != want_backend or eng.params.capacity != SERVICE[
+    if eng.backend != want_backend or eng.params.capacity != config[
             "capacity"]:
         raise AssertionError(f"service engine {eng.backend} at "
                              f"{eng.params.capacity} slots")
@@ -2386,6 +3084,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--multihost-worker"]:  # drive_multihost's process
+        return multihost_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from goworld_tpu_torch.ops import _build
     from goworld_tpu_torch.ops import boids as tb
@@ -2393,6 +3093,7 @@ def main() -> int:
     from goworld_tpu_torch.ops import event_kernel as ek
     from goworld_tpu_torch.ops import neighbor as tn
     from goworld_tpu_torch.parallel import make_mesh
+    from goworld_tpu_torch.parallel import mesh as tm
     from goworld_tpu_torch.parallel import spatial as ts
 
     device = torch.device("cuda")
@@ -2425,8 +3126,15 @@ def main() -> int:
     })
     strips, drain_rows = drive_strips(tn, ek, ts, make_mesh, device)
     print(json.dumps({"strips_1m": strips}), flush=True)
+    entity, entity_rows = drive_entity(tn, ek, tm, make_mesh, device)
+    print(json.dumps({"entity_1m": entity}), flush=True)
+    for row, erow in zip(kernels, entity_rows):  # the mask forms
+        row["entity_1m"] = slab_entry(erow)
+        row["max_abs_err"] = max(row["max_abs_err"], erow["max_abs_err"])
     service, service_rows = drive_service(tn, ek, device)
     print(json.dumps({"service_10k": service}), flush=True)
+    entity_service, es_rows = drive_entity_service(tn, ek, tm, device)
+    print(json.dumps({"entity_service": entity_service}), flush=True)
     for row, srow in zip(kernels, service_rows):  # the mask forms
         run = service["fused"]
         row["service_10k"] = {
@@ -2436,6 +3144,9 @@ def main() -> int:
                                     "bound_by", "max_abs_err")},
         }
         row["max_abs_err"] = max(row["max_abs_err"], srow["max_abs_err"])
+    for row, erow in zip(kernels, es_rows):  # the mask forms
+        row["entity_service"] = slab_entry(erow)
+        row["max_abs_err"] = max(row["max_abs_err"], erow["max_abs_err"])
     kernels[2:2] = drain_rows
     scenarios, scenario_rows = drive_scenarios(tn, ek, device)
     print(json.dumps({"scenarios": scenarios}), flush=True)
@@ -2469,6 +3180,14 @@ def main() -> int:
                if "skipped_ms" in crow else {}),
         }
         row["max_abs_err"] = max(row["max_abs_err"], crow["max_abs_err"])
+    root = Path(__file__).resolve().parent
+    multihost, mh_rows = drive_multihost(tn, ek, root, device)
+    print(json.dumps({"multihost": multihost}), flush=True)
+    mh_cluster = drive_multihost_cluster(root, torch.cuda.get_device_name(0))
+    print(json.dumps({"multihost_cluster": mh_cluster}), flush=True)
+    for row, mrow in zip(kernels, mh_rows):  # the mask forms
+        row["multihost"] = slab_entry(mrow)
+        row["max_abs_err"] = max(row["max_abs_err"], mrow["max_abs_err"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,10 +19,9 @@ otherwise a slot reused in the same tick would mis-attribute diffs.
 
 Device: the service builds its engines on ``device`` (None means
 ``"cuda"``, and raises where no CUDA device exists, as ``NeighborEngine``
-does; pass ``"cpu"`` for the plain versions). The port has the single-
-device engine and the strip tier (``shard_mode="spatial"``); the
-entity-sharded all-gather tier (``shard_mode="entity"``) and the
-multi-process tier (``multihost=True``) are not ported yet and refuse.
+does; pass ``"cpu"`` for the plain versions): the single-device engine,
+the strip tier (``shard_mode="spatial"``), the entity-sharded tier
+(``shard_mode="entity"``) or the multi-process tier (``multihost=True``).
 PyTorch compiles nothing, so every engine variant is ready from its first
 dispatch: the JAX service's compile-stall guards stay in place with
 "ready" always true (``_variant_ready``).
@@ -226,17 +225,27 @@ def params_from_config(aoi_cfg, params: NeighborParams | None = None) -> Neighbo
 class BatchAOIService:
     """Game-wide batched AOI state: one engine, slot-allocated entities.
 
-    ``mesh_shards > 1`` builds the strip-sharded
-    ``SpatialShardedNeighborEngine`` over a 1-D mesh of ``mesh_shards``
-    strips on ``device`` (``[aoi] mesh_shards`` in the ini; the strips may
-    share one card): grid-column strips with a halo exchange
-    (parallel/spatial.py). The host-facing surface is identical — both
-    engines speak step_async()/collect() with one packed readback per tick.
+    ``mesh_shards > 1`` builds a sharded engine over a 1-D mesh of
+    ``mesh_shards`` shards on ``device`` (``[aoi] mesh_shards`` in the ini;
+    the shards may share one card): with ``shard_mode="spatial"`` the
+    strip-sharded ``SpatialShardedNeighborEngine`` (grid-column strips with
+    a halo exchange, parallel/spatial.py), with ``shard_mode="entity"`` the
+    entity-sharded ``ShardedNeighborEngine`` (rows sharded, positions
+    all-gathered each tick, parallel/mesh.py). The host-facing surface is
+    identical — every engine speaks step_async()/collect() with one packed
+    readback per tick.
+
+    ``multihost=True`` is the multi-process tier (``[aoi]
+    multihost_coordinator``, after ``parallel.multihost.init_multihost``):
+    one ``MultiHostNeighborEngine`` spanning every game process, this
+    service owning only its process's row slab on its own device. Capacity
+    is GLOBAL (split across games), built at full size immediately (tier
+    growth is not lockstep-safe), space ids are globally unique, and every
+    process dispatches the same sequence of ticks, each one gather of
+    every process's rows (game/service.py main loop).
 
     ``device``: where the engines run; None means ``"cuda"`` and raises
-    where no CUDA device exists. ``shard_mode="entity"`` (the all-gather
-    tier) and ``multihost=True`` (the multi-process tier) are not ported
-    yet and raise ``NotImplementedError``.
+    where no CUDA device exists.
     """
 
     def __init__(
@@ -261,16 +270,6 @@ class BatchAOIService:
                 f"[aoi] strip_placement must be topology|ring, "
                 f"got {strip_placement!r}"
             )
-        if multihost:
-            raise NotImplementedError(
-                "the multi-process AOI tier ([aoi] multihost_coordinator, "
-                "MultiHostNeighborEngine) is not ported to PyTorch yet; run "
-                "one game process's service on its own device")
-        if mesh_shards > 1 and shard_mode == "entity":
-            raise NotImplementedError(
-                "[aoi] shard_mode = entity (the all-gather "
-                "ShardedNeighborEngine) is not ported to PyTorch yet; use "
-                "shard_mode = spatial")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -296,23 +295,73 @@ class BatchAOIService:
 
             slabs = entity_manager.runtime.slabs
         self.slabs = slabs
-        self.max_params = params  # config ceiling ([aoi] max_entities)
-        self.mesh_shards = mesh_shards
-        self._align = 8 * max(1, mesh_shards)
-        tier = min(params.capacity, self._round_up(_MIN_TIER))
-        self.params = dataclasses.replace(params, capacity=tier)
-        self.engine = self._build_engine(self.params)
-        self.engine.reset()
-        slabs.ensure_capacity(tier)
+        self.multihost = multihost
+        if multihost:
+            # Multi-process tier: one engine over every game process, one
+            # shard each (parallel/multihost.py). Built at FULL capacity
+            # immediately — tier growth is a per-process decision and every
+            # process must dispatch the same sequence of gathers, so
+            # growing lazily would wedge the group. Capacity / max_events
+            # are rounded up to the global shard alignment here (not in
+            # params_from_config: the process count is only known after
+            # init_multihost).
+            from goworld_tpu_torch.parallel import multihost as mh
+            from goworld_tpu_torch.parallel.mesh import make_mesh
+
+            self._nprocs = mh.process_count()
+            self._pid = mh.process_index()
+            n_dev = self._nprocs
+            align = 8 * n_dev
+            cap = ((params.capacity + align - 1) // align) * align
+            ev = ((params.max_events + n_dev - 1) // n_dev) * n_dev
+            full = dataclasses.replace(params, capacity=cap, max_events=ev)
+            self.max_params = full
+            self.params = full
+            self.mesh_shards = 1
+            self._align = align
+            # The reference backend: ENTITY-row ownership, so each
+            # process's events are exactly its own entities' events (the
+            # slab kernel delivers by CELL ownership and would need an
+            # event-routing layer across games; parallel/multihost.py).
+            self.engine = mh.MultiHostNeighborEngine(
+                full, make_mesh(1, self.device), backend="reference")
+            self.engine.reset()
+            # Host arrays cover only this process's row slab; engine
+            # events carry GLOBAL ids, mapped back in _deliver.
+            self._id_base = self.engine.local_lo
+            n = self.engine.local_capacity
+            # Fixed-size local slab: growth is not lockstep-safe, so the
+            # store is built out to the engine's local capacity now and
+            # capped there (the alloc error names the per-process bound).
+            slabs.ensure_capacity(n)
+            slabs.max_capacity = max(slabs.capacity, n)
+            slabs.exhausted_hint = (
+                f"BatchAOIService local slab {slabs.capacity} exhausted "
+                f"(global [aoi] max_entities split across "
+                f"{self._nprocs} processes); raise max_entities")
+        else:
+            self.max_params = params  # config ceiling ([aoi] max_entities)
+            self.mesh_shards = mesh_shards
+            self._align = 8 * max(1, mesh_shards)
+            self._id_base = 0
+            self._nprocs = 1
+            self._pid = 0
+            tier = min(params.capacity, self._round_up(_MIN_TIER))
+            self.params = dataclasses.replace(params, capacity=tier)
+            self.engine = self._build_engine(self.params)
+            self.engine.reset()
+            slabs.ensure_capacity(tier)
         slabs.aoi_service = self  # released slots now quarantine (slabs.py)
         # Fused entity logic ([aoi] fuse_logic): per-class tick programs
         # run INSIDE the engine step dispatch. Effective only on engines
         # that speak the logic= dispatch contract (the single-device
-        # engine and the spatial sharded engine).
+        # engine and the spatial sharded engine); the entity-sharded and
+        # multihost tiers fall back to host-side hooks.
         self.fuse_logic = bool(fuse_logic)
         self._fuse_enabled = (
             self.fuse_logic
             and getattr(self.engine, "supports_fused_logic", False)
+            and not multihost
         )
         if self.fuse_logic and not self._fuse_enabled:
             from goworld_tpu_torch.utils import gwlog
@@ -344,7 +393,8 @@ class BatchAOIService:
         # verdicts (the decode is exact either way — verdicts only let
         # it drop no-op rows without consulting the live edge map).
         self._verdicts_enabled = (
-            getattr(self.engine, "supports_tier_pass", False)
+            not multihost
+            and getattr(self.engine, "supports_tier_pass", False)
             and (self.max_params.capacity + 1) ** 2 < 2 ** 31
         )
         self._space_seq = 0
@@ -365,8 +415,12 @@ class BatchAOIService:
         self._prewarmed_cap = 0
         self.last_step_duration = 0.0  # measured dispatch→ready, seconds
         self._turnaround_stamped = False  # in-flight step measured yet?
-        # Dispatches by tick()/tick_sync() (warmup excluded).
+        # Dispatches by tick()/tick_sync() (warmup excluded: it is uniform
+        # across processes) and the flush round: the multihost tier's
+        # pre-freeze alignment protocol reads both.
         self._dispatch_count = 0
+        self._flush_round = 0
+        self._flush_target = 0
         # Delivery model: "pipelined" (default; diffs land one tick late,
         # one blocking fetch per tick) or "sync" ([aoi] delivery; diffs
         # land same-tick, loop stalls on device compute — tick_sync).
@@ -435,21 +489,30 @@ class BatchAOIService:
         """The port's engine for ``params`` on the service's device: the
         single-device engine (its "auto" backend: the CUDA kernel path on a
         card, the reference path on the CPU), or with ``mesh_shards > 1``
-        the strip tier, every strip on that device."""
+        the strip tier or the entity-sharded tier, every shard on that
+        device."""
         if self.mesh_shards > 1:
-            # Grid-strip halo exchange (parallel/spatial.py): O(boundary)
-            # traffic instead of the all-gather's O(N) broadcast; the
-            # strip knobs ride the [aoi] config.
             from goworld_tpu_torch.parallel.mesh import make_mesh
-            from goworld_tpu_torch.parallel.spatial import (
-                SpatialShardedNeighborEngine,
-            )
 
-            return SpatialShardedNeighborEngine(
-                params, make_mesh(self.mesh_shards, self.device),
-                strip_cols=self.pallas_strip_cols or None,
-                inkernel_drain=self.pallas_inkernel_drain,
-            )
+            mesh = make_mesh(self.mesh_shards, self.device)
+            if self.shard_mode == "spatial":
+                # Grid-strip halo exchange (parallel/spatial.py):
+                # O(boundary) traffic instead of the all-gather's O(N)
+                # broadcast; the strip knobs ride the [aoi] config.
+                from goworld_tpu_torch.parallel.spatial import (
+                    SpatialShardedNeighborEngine,
+                )
+
+                return SpatialShardedNeighborEngine(
+                    params, mesh,
+                    strip_cols=self.pallas_strip_cols or None,
+                    inkernel_drain=self.pallas_inkernel_drain,
+                )
+            # Entity rows sharded, positions all-gathered: the slab-kernel
+            # program ("auto"; its plain versions on the CPU).
+            from goworld_tpu_torch.parallel.mesh import ShardedNeighborEngine
+
+            return ShardedNeighborEngine(params, mesh)
         return NeighborEngine(params, device=self.device)
 
     def warmup(self) -> None:
@@ -460,8 +523,10 @@ class BatchAOIService:
         CUDA initialisation, the kernel libraries' loading and the caching
         allocator's first blocks; called at game boot, before the
         deployment-ready barrier admits clients, as the JAX service's
-        compile warmup is."""
-        n = self.params.capacity
+        compile warmup is. In the multihost tier this step is the group's
+        first gather: every game warms up at boot."""
+        n = (self.engine.local_capacity if self.multihost
+             else self.params.capacity)
         self.engine.step_async(
             np.zeros((n, 2), np.float32), np.zeros(n, bool),
             np.zeros(n, np.int32), np.zeros(n, np.float32),
@@ -485,6 +550,8 @@ class BatchAOIService:
     # --- capacity tiers -----------------------------------------------------
 
     def _next_tier(self) -> NeighborParams | None:
+        if self.multihost:
+            return None  # built at full capacity; growth is not lockstep
         cur = self.params.capacity
         if cur >= self.max_params.capacity:
             return None
@@ -582,10 +649,12 @@ class BatchAOIService:
     # --- space / slot allocation -------------------------------------------
 
     def alloc_space_id(self) -> int:
-        """Process-unique space id (the JAX service's single-process id,
-        seq + 1)."""
+        """Process-unique space id. In multihost mode ids are GLOBALLY
+        unique (seq * nprocs + pid + 1): the pair predicate compares exact
+        space ids, so two games' spaces can never produce cross-game pairs
+        even though they share one global engine."""
         self._space_seq += 1
-        return self._space_seq + 1
+        return self._space_seq * self._nprocs + self._pid + 1
 
     def alloc_slot(self, entity, space_id: int, x: float, z: float, radius: float) -> int:
         """Activate ``entity``'s slab slot in the engine (AOI space entry).
@@ -603,7 +672,8 @@ class BatchAOIService:
                 entity._slot = slot
             except AttributeError:  # __slots__'d duck: slot still works
                 pass
-        engine_cap = self.params.capacity
+        engine_cap = (self.engine.local_capacity if self.multihost
+                      else self.params.capacity)
         while slot >= engine_cap:
             if self._next_tier() is None:
                 raise RuntimeError(
@@ -867,10 +937,13 @@ class BatchAOIService:
 
     def _tier_pass_active(self) -> bool:
         """Run the [sync] cadence tier pass inside the engine dispatch?
-        Needs a tiering-enabled slab config and an engine that speaks the
-        ``tiers=`` dispatch contract (the single-device engine)."""
+        Needs a tiering-enabled slab config, an engine that speaks the
+        ``tiers=`` dispatch contract (the single-device engine), and a
+        single-process deployment (the multihost tier's lockstep sequence
+        of ticks must not diverge on per-process edge counts)."""
         return (
-            getattr(self.engine, "supports_tier_pass", False)
+            not self.multihost
+            and getattr(self.engine, "supports_tier_pass", False)
             and len(self.slabs.sync.cadences) > 1
         )
 
@@ -965,7 +1038,8 @@ class BatchAOIService:
         from goworld_tpu_torch.utils import opmon
 
         quarantined_now = self.slabs.take_quarantine()
-        cap = self.params.capacity
+        cap = (self.engine.local_capacity if self.multihost
+               else self.params.capacity)
         s = self.slabs
         logic = None
         prev = self._pending
@@ -1059,7 +1133,9 @@ class BatchAOIService:
         hanging the loop forever; aoi_sync_degrade_total counts each
         degrade. A later tick delivers the
         parked step the moment it is observed ready, or returns ``None``
-        (frame-skip) while it is not."""
+        (frame-skip) while it is not. Incompatible with the multihost
+        tier (read_config validation): there a dead peer would make every
+        sync wait run into its budget."""
         from goworld_tpu_torch.utils import gwlog, opmon
 
         # Mode-switch / parked-step safety: deliver any leftover in-flight
@@ -1139,9 +1215,64 @@ class BatchAOIService:
             return 0.0
         return time.monotonic() - prev[2]
 
+    # Seconds the multihost flush waits, in all, on its peers' dispatch
+    # counts and then on the in-flight step: one shared deadline each, well
+    # inside the CLI's 30 s freeze budget.
+    MULTIHOST_FLUSH_DEADLINE = 10.0
+
+    def _align_multihost_for_flush(self) -> bool:
+        """Equalize dispatch counts across processes before flush.
+
+        Pipelined delivery lets a process run at most ONE dispatch ahead of
+        a peer (its step waits in the gather for the peer's rows); if the
+        leader flushed now, its collect would wait on a gather the
+        (also-freezing) peer will never join — a permanent wedge. Every
+        process publishes its dispatch count through the process group's
+        key-value store (``parallel.multihost.store``; no collective — one
+        here would itself need count agreement), reads all peers', and
+        ticks up to the max so everyone collects the same final step.
+
+        Returns False when peers are unreachable (died mid-freeze): the
+        in-flight step is then ABANDONED rather than wedging — safe because
+        a restored game re-enters every entity into a fresh engine, and the
+        idempotent interest guards absorb the missed diffs."""
+        import datetime
+
+        from goworld_tpu_torch.parallel import multihost as mh
+        from goworld_tpu_torch.utils import gwlog
+
+        kv = mh.store()
+        if kv is None:  # not actually distributed (single-process rig)
+            return True
+        self._flush_round += 1
+        prefix = f"gwt/aoi_flush/{self._flush_round}"
+        keys = [f"{prefix}/{p}" for p in range(self._nprocs)]
+        try:
+            kv.set(keys[self._pid], str(self._dispatch_count))
+            # ONE shared deadline across every peer's key, not one each:
+            # this runs inside the freeze path, and N dead peers must not
+            # stack N timeouts. A peer that froze first already set its
+            # key (set happens before the wait), so the healthy case never
+            # waits.
+            kv.wait(keys, datetime.timedelta(
+                seconds=self.MULTIHOST_FLUSH_DEADLINE))
+            counts = [int(kv.get(k)) for k in keys]
+        except Exception:
+            gwlog.errorf(
+                "AOI multihost flush: peer dispatch counts unreachable; "
+                "abandoning the in-flight step (interest is rebuilt on "
+                "restore)"
+            )
+            self._pending = None
+            return False
+        self._flush_target = max(counts)
+        return True
+
     def flush(self) -> tuple[int, int]:
         """Deliver the in-flight step's events without dispatching another
         (freeze/teardown barrier: no diffs may be outstanding afterwards)."""
+        if self.multihost:
+            return self._flush_multihost_bounded()
         prev = self._pending
         self._pending = None
         if prev is None:
@@ -1150,6 +1281,55 @@ class BatchAOIService:
         # land in the slabs BEFORE freeze_entities packs them.
         self._consume_fused(prev[0])
         return self._deliver(prev)
+
+    def _wait_ready_bounded(self, deadline: float) -> bool:
+        """Poll the in-flight step's non-blocking readiness probe until it
+        is ready or the deadline passes. False = a gather that will never
+        complete (a peer died before joining it)."""
+        prev = self._pending
+        if prev is None:
+            return True
+        while not prev[0].is_ready():
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.005)
+        return True
+
+    def _flush_multihost_bounded(self) -> tuple[int, int]:
+        """Multihost flush with a liveness bound.
+
+        Publishing a dispatch count is not a liveness proof: a peer can
+        set its key and die before dispatching its catch-up steps, and
+        then every surviving process's catch-up tick or final collect
+        would wait inside a gather the dead peer never joins. So never
+        issue an unbounded wait here: before each blocking step, poll
+        ``is_ready()`` (non-blocking) against one shared deadline, and on
+        expiry abandon the in-flight step exactly like the unreachable-peer
+        path (safe for the same reason: restore rebuilds interest from
+        scratch). Event DELIVERY stays on this thread — entity hooks send
+        client packets via the thread's asyncio loop and must never run
+        off-loop."""
+        from goworld_tpu_torch.utils import gwlog
+
+        if not self._align_multihost_for_flush():
+            return 0, 0
+        deadline = time.monotonic() + self.MULTIHOST_FLUSH_DEADLINE
+        while self._dispatch_count < self._flush_target:
+            if not self._wait_ready_bounded(deadline):
+                break
+            self.tick(wait=True)  # collect is instant (observed ready)
+        else:
+            if self._wait_ready_bounded(deadline):
+                prev = self._pending
+                self._pending = None
+                return self._deliver(prev) if prev is not None else (0, 0)
+        gwlog.errorf(
+            "AOI multihost flush: in-flight step never became ready "
+            "within budget (peer died after publishing its count?); "
+            "abandoning it (interest is rebuilt on restore)"
+        )
+        self._pending = None
+        return 0, 0
 
     def _deliver(self, prev: tuple) -> tuple[int, int]:
         from goworld_tpu_torch.utils import opmon
@@ -1173,6 +1353,24 @@ class BatchAOIService:
             # collect() already warned via gwlog; the counter makes the
             # "N invisible entities" condition scrapeable over time.
             self._m_overflow.inc(_dropped)
+        if self._id_base or self.multihost:
+            # Multihost events carry GLOBAL row ids; this process's slab is
+            # [id_base, id_base + local_capacity). Entity-row sharding plus
+            # globally-unique space ids make both pair sides local. The
+            # filter is vectorized: at storm scale this runs over 100k+
+            # pairs on the single-threaded game loop.
+            base, n = self._id_base, len(self._entities)
+
+            def _local(pairs):
+                arr = np.asarray(pairs, dtype=np.int64)
+                if arr.size == 0:
+                    return arr.reshape(0, 2)
+                arr = arr - base
+                m = ((arr >= 0) & (arr < n)).all(axis=1)
+                return arr[m]
+
+            enters = _local(enters)
+            leaves = _local(leaves)
         n_e, n_l = len(enters), len(leaves)
         t_deliver = time.perf_counter()
         enters, leaves = self._deliver_fused(pending, enters, leaves)

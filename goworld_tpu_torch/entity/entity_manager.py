@@ -86,8 +86,9 @@ class Runtime:
         # launch emits the compacted event pairs itself (steady strip
         # ticks run no XLA rank-select pass).
         self.aoi_pallas_inkernel_drain: bool = True
-        # Multi-HOST (DCN) tier ([aoi] multihost_coordinator): not ported
-        # yet; the batched service refuses True.
+        # Multi-process tier: True once this process has joined the
+        # torch.distributed group ([aoi] multihost_coordinator; the game
+        # service calls init_multihost before building the AOI service).
         self.aoi_multihost: bool = False
         # Device of the batched AOI engines and of the columnar tick
         # programs (entity/columns.py): None means "cuda", which raises

@@ -172,9 +172,36 @@ class GameService:
             )
             rt.aoi_device = "cpu" if platform == "cpu" else None
             if self.cfg.aoi.multihost_coordinator:
-                raise NotImplementedError(
-                    "[aoi] multihost_coordinator: the multi-process AOI "
-                    "tier is not ported yet (ROADMAP queue 1 item 10)")
+                # Multi-process tier: every game joins ONE torch.distributed
+                # group; process_id is this game's rank among the
+                # configured games (read_config validates processes ==
+                # len(games)). Must run before the AOI service is built;
+                # blocks until every game is up (the CLI spawns the game
+                # batch before waiting on tags).
+                from goworld_tpu_torch.parallel.multihost import (
+                    init_multihost,
+                    process_count,
+                )
+
+                games_sorted = sorted(self.cfg.games)
+                pid = games_sorted.index(self.gameid)
+                nprocs = len(games_sorted)
+                gwlog.infof(
+                    "game %d joining AOI multihost mesh as process %d/%d "
+                    "via %s", self.gameid, pid, nprocs,
+                    self.cfg.aoi.multihost_coordinator,
+                )
+                init_multihost(
+                    self.cfg.aoi.multihost_coordinator, nprocs, pid
+                )
+                rt.aoi_multihost = True
+                # One shard a game process: the global shard count is the
+                # process count.
+                gwlog.infof(
+                    "game %d AOI multihost mesh joined: %d processes, "
+                    "%d global devices", self.gameid, process_count(),
+                    process_count(),
+                )
             # Run the engine BEFORE the ready barrier admits clients: the
             # first dispatch otherwise pays the CUDA context, the kernel
             # libraries' loading and the allocator's first blocks right as

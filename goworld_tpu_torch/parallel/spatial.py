@@ -1,16 +1,24 @@
 """Spatially sharded AOI: grid-column strips with halo exchange, the port of
-``goworld_tpu.parallel.spatial`` (its kernel tier).
+``goworld_tpu.parallel.spatial``.
 
 The torus's columns are split into D contiguous strips; each strip owns the
 entity rows whose cell lies in it, and per tick the only cross-strip
 traffic is the boundary bands (cells within one interaction radius of a
-seam, both epochs) sent to the two ring neighbors. Each strip scatters its
-own + ghost rows into a strip-local dense cell slab
-``[space_slots, gz+2, strip_cols+4, F, LANES]`` and runs the event kernel
-there, so the table sort, the kernel grid and the event drain are all
-strip-local. Ticks the strip invariants cannot cover (a teleport past the
-halo, a band past ``halo_cap``, a strip past its row budget) run the exact
-all-gather program (``parallel.mesh._sharded_step``) instead.
+seam, both epochs) sent to the two ring neighbors. Two backends share that
+halo layout, as in the JAX module:
+
+- ``"kernel"`` (the JAX ``"pallas"``): each strip scatters its own + ghost
+  rows into a strip-local dense cell slab
+  ``[space_slots, gz+2, strip_cols+4, F, LANES]`` and runs the event kernel
+  there, so the table sort, the kernel grid and the event drain are all
+  strip-local.
+- ``"reference"`` (the JAX ``"jnp"``): each strip queries its own rows
+  through strip-local candidate-id matrices over its own + ghost rows
+  (``_spatial_step_impl``), paged by flat index (``_spatial_drain``).
+
+Ticks the strip invariants cannot cover (a teleport past the halo, a band
+past ``halo_cap``, a strip past its row budget) run the exact all-gather
+program (``parallel.mesh._sharded_step``) instead, on either backend.
 
 A strip's device comes from the mesh (``parallel.mesh.make_mesh``), a list
 of ``torch.device`` with repeats allowed, so D strips may share one card.
@@ -38,13 +46,15 @@ each program on the strips' local rows, in the row-permuted layout, on the
 strip tick and on the fallback tick alike.
 
 Each step program counts its own launches, ``jit_launches_total{fn}``
-with ``fn`` ``spatial_step_kernel`` (``_spatial_step_pallas_impl``) or, on
-a fallback tick, ``sharded_step`` (``parallel.mesh._sharded_step``), with
-``_fused`` appended when entity logic rides it, as the JAX module's
-``SentinelJit`` wrappers count calls of the programs themselves: a
-dispatch that ran two programs counts two. The paging drains
-(``_spatial_drain_bits``) are not steps and stay uncounted. Not ported yet: the jnp
-strip backend, the fallback prewarm thread and the JAX engine's other
+with ``fn`` ``spatial_step_kernel`` (``_spatial_step_pallas_impl``),
+``spatial_step_reference`` (``_spatial_step_impl``) or, on a fallback tick,
+``sharded_step`` (``parallel.mesh._sharded_step``), with ``_fused``
+appended when entity logic rides it, as the JAX module's ``SentinelJit``
+wrappers count calls of the programs themselves: a dispatch that ran two
+programs counts two. The paging drains (``_spatial_drain_bits``,
+``_spatial_drain``) are not steps and stay uncounted. Not ported: the
+fallback prewarm thread (nothing compiles lazily here), the ``placement``
+option (a ``torch.device`` has no coords) and the JAX engine's other
 telemetry counters.
 """
 
@@ -63,6 +73,9 @@ from goworld_tpu_torch.ops.neighbor import (
     _bins,
     _drain_bits,
     _f32,
+    _drain_ids,
+    _gather_cands,
+    _pair_valid,
     _popcount16,
     _scatter_feats,
     bins_reference,
@@ -182,6 +195,212 @@ def _fast_guard_strip(p: NeighborParams, mesh: list[torch.device],
            <= _f32(p.cell_size, mesh[d]))
         for d in range(len(mesh))
     ]
+
+
+# --- the reference strip backend ---------------------------------------------
+
+
+def _build_table_spatial(p: NeighborParams, bucket, active, slots,
+                         chunk: int):
+    """Strip-local table build over the combined (own + ghost) rows, at the
+    cell_capacity stride of the reference path. Table values are
+    COMBINED-ROW indices (sentinel n_rows), and cell-capacity ties break by
+    SLOT id, so every strip holding a copy of a seam cell drops the members
+    the single-device engine drops. Returns (table, in_table bool[n_rows],
+    own_dropped)."""
+    n_rows = bucket.shape[0]
+    dev = bucket.device
+    m = p.cell_capacity
+    key = torch.where(active, bucket, p.num_buckets)
+    order, sorted_key, rank = sorted_ranks_by(key, slots, n_rows)
+    ok = (sorted_key < p.num_buckets) & (rank < m)
+    table_size = p.num_buckets * m
+    dst = torch.where(ok, sorted_key * m + rank, table_size)
+    # Dropped rows all land in one trailing trash entry, cut off after.
+    table = torch.full((table_size + 1,), n_rows, dtype=torch.int32,
+                       device=dev)
+    table[dst.long()] = order
+    in_table = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    in_table[order.long()] = ok
+    dropped_sorted = (sorted_key < p.num_buckets) & ~ok
+    own_dropped = (dropped_sorted & (order < chunk)).sum(dtype=torch.int32)
+    return table[:table_size], in_table, own_dropped
+
+
+def _spatial_step_body(
+    p: NeighborParams,
+    events_inline: int,
+    halo_cap: int,
+    mesh: list[torch.device],
+    ppos_l, pact_l, pspc_l, prad_l,
+    pos_l, act_l, spc_l, rad_l,
+    slot_l,
+    send_lo_idx,
+    send_hi_idx,
+):
+    """Every strip's reference step: the halo exchange, strip-local tables
+    of both epochs over own + ghost rows, the own rows' candidate-id
+    matrices and epoch masks. Each argument after ``mesh`` is a list over
+    the strips. Returns lists over the strips of (enter_ids [chunk, 9M],
+    leave_ids [chunk, 9M], out [3 + D + 2E, 2]); the id matrices hold SLOT
+    ids (sentinel N), the inline pairs are slot-valued.
+
+    The JAX body branches its leave pass with ``lax.cond`` on the
+    replicated guard; here both branches run and the guard selects on the
+    device."""
+    n = p.capacity
+    n_dev = len(mesh)
+    chunk = pos_l[0].shape[0]
+    n_all = chunk + 2 * halo_cap
+    combined = _exchange_halo(
+        p, mesh, ppos_l, pact_l, pspc_l, prad_l,
+        pos_l, act_l, spc_l, rad_l, slot_l, send_lo_idx, send_hi_idx,
+    )
+    grids, own_drop = [], []
+    for d in range(n_dev):
+        (pos_all, ppos_all, act_all, pact_all, spc_all, pspc_all, slot_all,
+         _, _) = combined[d]
+        cxc, czc, smc = _bins(p, pos_all, spc_all)
+        cxp, czp, smp = _bins(p, ppos_all, pspc_all)
+        buc_c = (smc * p.grid_z + czc) * p.grid_x + cxc
+        buc_p = (smp * p.grid_z + czp) * p.grid_x + cxp
+        # Strip-local sorts over chunk + 2h keys.
+        table_c, av_c, drop_c = _build_table_spatial(
+            p, buc_c, act_all, slot_all, chunk)
+        table_p, av_p, _ = _build_table_spatial(
+            p, buc_p, pact_all, slot_all, chunk)
+        own_drop.append(drop_c)
+        grids.append((cxc, czc, smc, table_c, av_c,
+                      cxp, czp, smp, table_p, av_p))
+    dropped_total = _reduce(own_drop, lambda s: s.sum(dtype=torch.int32),
+                            mesh)
+    fast = _fast_guard_strip(p, mesh, ppos_l, pact_l, pspc_l, prad_l,
+                             pos_l, act_l, spc_l, dropped_total)
+
+    enter_ids, leave_ids, headers, pairs = [], [], [], []
+    for d in range(n_dev):
+        (pos_all, ppos_all, _, _, spc_all, pspc_all, slot_all, _,
+         _) = combined[d]
+        (cxc, czc, smc, table_c, av_c,
+         cxp, czp, smp, table_p, av_p) = grids[d]
+        f = fast[d]
+        q_iota = torch.arange(chunk, dtype=torch.int32, device=mesh[d])
+
+        def emask(cand, q_pos, q_av, q_spc, q_rad, pos_a, av_a, spc_a):
+            safe = torch.clamp(cand, max=n_all - 1).long()
+            not_self = (cand < n_all) & (cand != q_iota[:, None])
+            return _pair_valid(
+                q_av[:, None], q_spc[:, None], (q_rad * q_rad)[:, None],
+                q_pos[:, 0][:, None], q_pos[:, 1][:, None],
+                av_a[safe], spc_a[safe], pos_a[:, 0][safe],
+                pos_a[:, 1][safe], not_self,
+            )
+
+        # Enter pass: candidates from the current grid, own rows as queries.
+        cand_c = _gather_cands(p, table_c, cxc[:chunk], czc[:chunk],
+                               smc[:chunk])
+        vc = emask(cand_c, pos_l[d], av_c[:chunk], spc_l[d], rad_l[d],
+                   pos_all, av_c, spc_all)
+        vp_on_c = emask(cand_c, ppos_l[d], av_p[:chunk], pspc_l[d],
+                        prad_l[d], ppos_all, av_p, pspc_all)
+        enter_mask = vc & ~vp_on_c
+        # Leave pass on both grids; the guard picks one.
+        cand_p = _gather_cands(p, table_p, cxp[:chunk], czp[:chunk],
+                               smp[:chunk])
+        vp = emask(cand_p, ppos_l[d], av_p[:chunk], pspc_l[d], prad_l[d],
+                   ppos_all, av_p, pspc_all)
+        vc_on_p = emask(cand_p, pos_l[d], av_c[:chunk], spc_l[d], rad_l[d],
+                        pos_all, av_c, spc_all)
+        leave_mask = torch.where(f, vp_on_c & ~vc, vp & ~vc_on_p)
+        cand_l = torch.where(f, cand_c, cand_p)
+        del vc, vp_on_c, vp, vc_on_p, cand_p
+
+        def slot_of(cand):
+            return slot_all[torch.clamp(cand, max=n_all - 1).long()]
+
+        e_ids = torch.where(enter_mask, slot_of(cand_c), n)
+        l_ids = torch.where(leave_mask, slot_of(cand_l), n)
+        n_enters = enter_mask.sum(dtype=torch.int32)
+        n_leaves = leave_mask.sum(dtype=torch.int32)
+        del enter_mask, leave_mask, cand_c, cand_l
+
+        def slotize(pr):
+            ent = pr[:, 0]
+            ent = torch.where(
+                ent < chunk,
+                slot_l[d][torch.clamp(ent, max=chunk - 1).long()], n)
+            return torch.stack([ent, pr[:, 1]], dim=1)
+
+        ep, ei = _drain_ids(e_ids, n, events_inline, 0)
+        lp, li = _drain_ids(l_ids, n, events_inline, 0)
+        headers.append(torch.stack([
+            torch.stack([n_enters, n_leaves]),
+            torch.stack([dropped_total[d], f.to(torch.int32)]),
+            torch.stack([ei[events_inline - 1], li[events_inline - 1]]),
+        ]).to(torch.int32))
+        pairs.append((slotize(ep), slotize(lp)))
+        enter_ids.append(e_ids)
+        leave_ids.append(l_ids)
+    # Replicated per-strip counts, as parallel.mesh._sharded_step.
+    counts_all = all_gather([h[0] for h in headers], mesh, stacked=True)
+    outs = [
+        torch.cat([headers[d], counts_all[d], *pairs[d]], dim=0)
+        for d in range(n_dev)
+    ]
+    return enter_ids, leave_ids, outs
+
+
+def _spatial_step_impl(*args):
+    """The reference strip step (``_spatial_step_body``'s arguments and
+    results), counted as one ``spatial_step_reference`` launch."""
+    sentinel.note_launch("spatial_step_reference")
+    return _spatial_step_body(*args)
+
+
+def _spatial_step_fused_impl(
+    p: NeighborParams,
+    events_inline: int,
+    halo_cap: int,
+    mesh: list[torch.device],
+    programs,
+    ppos_l, pact_l, pspc_l, prad_l,
+    pos_l, act_l, spc_l, rad_l,
+    slot_l,
+    send_lo_idx,
+    send_hi_idx,
+    y_l, yaw_l, sel_l, dt_l, *cols_l,
+):
+    """The reference strip step plus fused entity logic on each strip's
+    LOCAL rows (row-permuted inputs, perm-snapshot writeback, as the kernel
+    tier's). Returns the step's (enter_ids, leave_ids, out) and the fused
+    outputs in ROW order on the first strip's device. One
+    ``spatial_step_reference_fused`` launch."""
+    sentinel.note_launch("spatial_step_reference_fused")
+    res = _spatial_step_body(
+        p, events_inline, halo_cap, mesh,
+        ppos_l, pact_l, pspc_l, prad_l,
+        pos_l, act_l, spc_l, rad_l,
+        slot_l, send_lo_idx, send_hi_idx,
+    )
+    fused = _fused_rows(programs, mesh, pos_l, y_l, yaw_l, sel_l, dt_l,
+                        cols_l)
+    return res + (fused,)
+
+
+def _spatial_drain(
+    p: NeighborParams, events_inline: int, chunk: int,
+    ids_l: torch.Tensor,  # [chunk, 9M] this strip's SLOT-id event matrix
+    slot_l: torch.Tensor,  # [chunk] row -> slot (dispatch-time perm)
+    start: int,  # resume cursor (local flat index)
+):
+    """Reference strip storm paging: (pairs [E, 2] slot-valued, flat
+    positions [E])."""
+    n = p.capacity
+    pairs, idx = _drain_ids(ids_l, n, events_inline, start)
+    ent = pairs[:, 0]
+    ent = torch.where(ent < chunk,
+                      slot_l[torch.clamp(ent, max=chunk - 1).long()], n)
+    return torch.stack([ent, pairs[:, 1]], dim=1), idx
 
 
 # --- the strip kernel slab ----------------------------------------------------
@@ -570,10 +789,11 @@ class SpatialShardedNeighborEngine:
     ``total_fast_ticks``, ``total_migrations``, ``total_fallbacks``.
 
     ``backend``: "kernel" ("auto" means "kernel"), the strip-local event
-    kernel slab. ``inkernel_drain``: the kernel's drain form emits the
+    kernel slab, or "reference", the strip-local candidate-id matrices.
+    ``inkernel_drain`` (kernel backend): the kernel's drain form emits the
     inline pairs (default); False takes the mask forms and the strip-local
     rank-select drain, the same events. ``strip_cols`` caps a strip's width
-    (the slab's static extent). Strip i lives at ``mesh[i]``: a
+    (the kernel slab's static extent; the reference backend has no cap). Strip i lives at ``mesh[i]``: a
     ``torch.device`` has no coords, so ``plan_placement`` would keep this
     order anyway.
     """
@@ -590,7 +810,7 @@ class SpatialShardedNeighborEngine:
     ) -> None:
         if backend == "auto":
             backend = "kernel"
-        if backend != "kernel":
+        if backend not in ("reference", "kernel"):
             raise ValueError(f"unknown backend {backend!r}")
         mesh = [torch.device(d) for d in mesh]
         n_dev = len(mesh)
@@ -610,7 +830,7 @@ class SpatialShardedNeighborEngine:
                 f"(each strip needs >= {MIN_STRIP_COLS} columns for the "
                 f"halo contract); raise [aoi] grid or lower mesh_shards"
             )
-        if params.cell_capacity > LANES:
+        if backend == "kernel" and params.cell_capacity > LANES:
             raise ValueError(
                 f"kernel path supports cell_capacity <= {LANES}, "
                 f"got {params.cell_capacity}"
@@ -623,24 +843,28 @@ class SpatialShardedNeighborEngine:
         self.chunk = params.capacity // n_dev
         self.events_inline = params.max_events // n_dev
         gx = params.grid_x
-        # Static kernel-slab width cap. Default: 2x the uniform strip,
-        # clamped to planner feasibility on both sides.
-        ceil_w = -(-gx // n_dev)
-        if strip_cols is None:
-            strip_cols = min(gx - (n_dev - 1) * MIN_STRIP_COLS, 2 * ceil_w)
-        strip_cols = int(strip_cols)
-        if strip_cols < ceil_w:
-            raise ValueError(
-                f"strip_cols {strip_cols} < ceil(grid_x/{n_dev}) = "
-                f"{ceil_w}: {n_dev} capped strips cannot cover "
-                f"{gx} columns"
-            )
-        if strip_cols + 4 > gx:
-            raise ValueError(
-                f"strip_cols {strip_cols} + 4 ghost columns exceeds "
-                f"grid_x {gx}; lower strip_cols (the strip slab must "
-                f"not wrap onto itself)"
-            )
+        if backend == "kernel":
+            # Static kernel-slab width cap. Default: 2x the uniform strip,
+            # clamped to planner feasibility on both sides.
+            ceil_w = -(-gx // n_dev)
+            if strip_cols is None:
+                strip_cols = min(gx - (n_dev - 1) * MIN_STRIP_COLS,
+                                 2 * ceil_w)
+            strip_cols = int(strip_cols)
+            if strip_cols < ceil_w:
+                raise ValueError(
+                    f"strip_cols {strip_cols} < ceil(grid_x/{n_dev}) = "
+                    f"{ceil_w}: {n_dev} capped strips cannot cover "
+                    f"{gx} columns"
+                )
+            if strip_cols + 4 > gx:
+                raise ValueError(
+                    f"strip_cols {strip_cols} + 4 ghost columns exceeds "
+                    f"grid_x {gx}; lower strip_cols (the strip slab must "
+                    f"not wrap onto itself)"
+                )
+        else:
+            strip_cols = None
         self.strip_cols = strip_cols
         if halo_cap is None:
             # ~6 band columns of the uniform-density column population,
@@ -661,7 +885,9 @@ class SpatialShardedNeighborEngine:
         # through the rank-select drain: kernel emission is cell-major, so
         # its partial window cannot be rank-resumed.
         self.inkernel_drain = bool(inkernel_drain)
-        self.drain_inline = self.events_inline if inkernel_drain else 0
+        self.drain_inline = (
+            self.events_inline if (backend == "kernel" and inkernel_drain)
+            else 0)
         self._flat_end = self.chunk * 9 * params.cell_capacity
         self._state: tuple | None = None
         self.last_grid_dropped = 0
@@ -816,7 +1042,8 @@ class SpatialShardedNeighborEngine:
         if self._state is None:
             raise RuntimeError("call reset() first")
         check_radius(self.params, radius, active)
-        check_space_ids(space, active)
+        if self.backend == "kernel":
+            check_space_ids(space, active)
         p = self.params
         # Copies, not views: these become the host prev mirror and must
         # not alias caller buffers.
@@ -938,7 +1165,25 @@ class SpatialShardedNeighborEngine:
             ) + tuple(put(np.asarray(c)[perm], np.asarray(c).dtype.type)
                       for c in cols)
 
-        if fallback_reason is None:
+        if fallback_reason is None and self.backend == "reference":
+            ref_args = (p, self.events_inline, self.halo_cap, self.mesh)
+            band_args = (self._perm_dev, put(send_lo, np.int32),
+                         put(send_hi, np.int32))
+            if logic is not None:
+                enter_ids, leave_ids, outs, fused_out = (
+                    _spatial_step_fused_impl(
+                        *ref_args, programs, *self._state, *cur_dev,
+                        *band_args, *logic_dev))
+            else:
+                enter_ids, leave_ids, outs = _spatial_step_impl(
+                    *ref_args, *self._state, *cur_dev, *band_args)
+            self.last_mode = "spatial"
+            pending = ShardedPendingStep(
+                self, ("spatial", enter_ids, self._perm_dev),
+                ("spatial", leave_ids, self._perm_dev), outs)
+            # The reference drain pages by flat matrix index.
+            pending.rank_paging = False
+        elif fallback_reason is None:
             strip_args = (
                 p, self.events_inline, self.halo_cap, self.strip_cols,
                 self.drain_inline, self.mesh)
@@ -979,7 +1224,7 @@ class SpatialShardedNeighborEngine:
             pending.rank_paging = False
 
         if fused_out is not None:
-            _FUSED_VARIANTS.add((p, "strips", programs))
+            _FUSED_VARIANTS.add((p, "strips", self.backend, programs))
             # Outputs are in ROW space: the perm SNAPSHOT maps row→slot at
             # writeback time, immune to later migrations and re-plans.
             pending.fused = (programs, np.asarray(logic[1]), perm.copy(),
@@ -1018,25 +1263,30 @@ class SpatialShardedNeighborEngine:
         programs = tuple(programs)
         empty_band = put(np.full(self.n_devices * self.halo_cap, self.chunk,
                                  np.int32), np.int32)
-        strip_lo = [round(i * p.grid_x / self.n_devices)
-                    for i in range(self.n_devices)]
-        _spatial_step_pallas_fused_impl(
-            p, self.events_inline, self.halo_cap, self.strip_cols,
-            self.drain_inline, self.mesh, programs, *zeros, *zeros,
-            put(np.arange(n, dtype=np.int32), np.int32), empty_band,
-            empty_band, strip_lo, *logic_dev)
+        perm = put(np.arange(n, dtype=np.int32), np.int32)
+        if self.backend == "reference":
+            _spatial_step_fused_impl(
+                p, self.events_inline, self.halo_cap, self.mesh, programs,
+                *zeros, *zeros, perm, empty_band, empty_band, *logic_dev)
+        else:
+            strip_lo = [round(i * p.grid_x / self.n_devices)
+                        for i in range(self.n_devices)]
+            _spatial_step_pallas_fused_impl(
+                p, self.events_inline, self.halo_cap, self.strip_cols,
+                self.drain_inline, self.mesh, programs, *zeros, *zeros,
+                perm, empty_band, empty_band, strip_lo, *logic_dev)
         _sharded_step_fused(p, self.events_inline, self.mesh, programs,
                             *zeros, *zeros, *logic_dev)
         for dev in dict.fromkeys(self.mesh):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-        _FUSED_VARIANTS.add((p, "strips", programs))
+        _FUSED_VARIANTS.add((p, "strips", self.backend, programs))
 
     def fused_trace_count(self, programs: tuple) -> int:
         """1 once a fused strip step for ``programs`` has run or been warmed
         at these params, else 0 (the JAX engine's trace count of its fused
         strip jit; see ``NeighborEngine.fused_trace_count``)."""
-        return int((self.params, "strips", tuple(programs))
+        return int((self.params, "strips", self.backend, tuple(programs))
                    in _FUSED_VARIANTS)
 
     def _note_step_flags(self, flags: int) -> None:
@@ -1086,8 +1336,9 @@ class SpatialShardedNeighborEngine:
     def _page(self, ctx: tuple, deficit: np.ndarray, starts: np.ndarray):
         """Per-strip chunked drain for events beyond the inline budget;
         ctx[0] picks the program: "pallas" = the strip-local bit drain
-        (event-RANK paging), "fallback" = the all-gather program's id
-        drain (flat-index paging). One host copy per round."""
+        (event-RANK paging), "spatial" = the reference strip drain and
+        "fallback" = the all-gather program's id drain (both flat-index
+        paging). One host copy per round."""
         mode = ctx[0]
         e = self.events_inline
         dev0 = self.mesh[0]
@@ -1105,6 +1356,11 @@ class SpatialShardedNeighborEngine:
                         ctx[2][d], int(starts[d]))
                     aux.append(torch.zeros(1, dtype=torch.int32,
                                            device=dev0))
+                elif mode == "spatial":
+                    pr, idx = _spatial_drain(
+                        self.params, e, self.chunk, ctx[1][d], ctx[2][d],
+                        int(starts[d]))
+                    aux.append(idx[take - 1:take].to(dev0))
                 else:
                     pr, idx = _sharded_drain(
                         self.params, e, self.chunk, d, ctx[1][d],

@@ -164,7 +164,8 @@ _STEP_LABELS = tuple(
     for kind in ("", "fused_")
     for bk in ("reference", "kernel")
 ) + (
-    "sharded_step", "sharded_step_fused",
+    "sharded_step", "sharded_step_fused", "sharded_step_kernel",
+    "spatial_step_reference", "spatial_step_reference_fused",
     "spatial_step_kernel", "spatial_step_kernel_fused",
 )
 

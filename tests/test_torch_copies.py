@@ -73,7 +73,8 @@ C_SOURCES = ["native/fastframe.c", "native/kcpcore.c"]
 EDITED = {
     # Edit 1, the game boot: the platform pin becomes rt.aoi_device, the
     # XLA cache (apply_compilation_cache) has no counterpart, multihost
-    # raises until queue 1 item 10, the boot logs the torch device,
+    # joins a torch.distributed group (the port's init_multihost, before
+    # the AOI service is built), the boot logs the torch device,
     # /metrics shows the event kernel's launches by form, and each
     # freeze/terminate logs the game's peak device memory.
     "game/service.py": {"imports", "apply_compilation_cache",

@@ -24,6 +24,7 @@ from goworld_tpu_torch.ops import boids_kernel as bk
 from goworld_tpu_torch.ops import event_kernel as ek
 from goworld_tpu_torch.ops import neighbor as tn
 from goworld_tpu_torch.parallel import make_mesh
+from goworld_tpu_torch.parallel import mesh as tm
 from goworld_tpu_torch.parallel import spatial as ts
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -223,7 +224,8 @@ def test_cuda_kernels_match_plain_version_at_skip_edges(cuda, dual):
         assert torch.equal(pairs[:, :cols], want_p[:, :cols])
 
 
-def strip_engine_matches_single_device_engine(mesh, inkernel_drain):
+def strip_engine_matches_single_device_engine(mesh, inkernel_drain,
+                                              backend="kernel"):
     """8 strips on ``mesh`` against the single-device kernel engine on the
     first card: a storm past the inline budget, steady drift, despawns and
     a teleport (the all-gather fallback)."""
@@ -231,7 +233,8 @@ def strip_engine_matches_single_device_engine(mesh, inkernel_drain):
                           grid_z=8, space_slots=2, cell_capacity=64,
                           max_events=1024)
     strips = ts.SpatialShardedNeighborEngine(p, mesh, strip_cols=10,
-                                             inkernel_drain=inkernel_drain)
+                                             inkernel_drain=inkernel_drain,
+                                             backend=backend)
     single = tn.NeighborEngine(p)
     assert strips.mesh == mesh
     strips.reset()
@@ -267,6 +270,53 @@ def test_cuda_strip_engine_matches_single_device_engine(cuda,
     mesh = make_mesh(8)
     assert mesh == [torch.device("cuda", torch.cuda.current_device())] * 8
     strip_engine_matches_single_device_engine(mesh, inkernel_drain)
+
+
+@pytest.mark.cuda
+def test_cuda_strip_reference_backend_matches_single_device_engine(cuda):
+    strip_engine_matches_single_device_engine(make_mesh(8), False,
+                                              backend="reference")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["reference", "kernel"])
+def test_cuda_sharded_engine_matches_single_device_engine(cuda, backend):
+    """8 entity shards on the card against the single-device kernel engine:
+    a storm past every shard's inline budget, drift, despawns, a teleport.
+    Four space slots, so the slab program copies each shard's slab."""
+    p = tn.NeighborParams(capacity=4096, cell_size=100.0, grid_x=16,
+                          grid_z=16, space_slots=4, cell_capacity=64,
+                          max_events=1024)
+    sharded = tm.ShardedNeighborEngine(p, make_mesh(8), backend=backend)
+    single = tn.NeighborEngine(p)
+    sharded.reset()
+    single.reset()
+    rng = np.random.default_rng(9)
+    pos = rng.uniform(0, 1600, (4096, 2)).astype(np.float32)
+    active = rng.random(4096) < 0.8
+    space = rng.integers(0, 6, 4096).astype(np.int32)
+    radius = np.full(4096, 100.0, np.float32)
+    before = dict(ek.launches)
+    for k in range(5):
+        if k == 3:
+            active = active & (rng.random(4096) < 0.95)
+        if k == 4:
+            pos[:20] = rng.uniform(0, 1600, (20, 2))
+        got = sharded.step(pos, active, space, radius)
+        want = single.step(pos, active, space, radius)
+        for i in (0, 1):
+            assert len(got[i]) == len(want[i])
+            assert (sorted(map(tuple, got[i].tolist()))
+                    == sorted(map(tuple, want[i].tolist())))
+        assert got[2] == want[2]
+        if k == 0:
+            assert len(got[0]) > p.max_events
+        pos = np.clip(pos + rng.normal(0, 3, pos.shape), 0,
+                      1600).astype(np.float32)
+    if backend == "kernel":  # 8 shards' launches of each form, 5 ticks;
+        # the single-device engine adds one of each a tick
+        for form in ek.FORMS:
+            assert ek.launches[form] - before[form] == 5 * 8 + 5
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ runtimes are cleaned in the fixture's teardown.
 """
 
 import random
+import socket
 import time
 import types
 
@@ -647,10 +648,25 @@ def test_fused_trajectory_matches_unfused_and_jax(monkeypatch):
     assert not np.array_equal(fused[2], np.full(24, 100.0, np.float32))
 
 
-# --- device choice and the tiers not ported -----------------------------------------
+# --- device choice and the sharded tiers -------------------------------------------
 
 
-def test_service_runs_on_cuda_unless_told_and_refuses_unported_tiers():
+def test_service_runs_on_cuda_unless_told_and_refuses_unported_tiers(
+        monkeypatch):
+    """The service's device defaults to CUDA and raises without it; each
+    tier setting builds its engine: ``shard_mode="entity"`` the
+    entity-sharded engine, ``"spatial"`` the strip engine, an unknown mode
+    raises, and ``multihost=True`` needs a process group, then builds the
+    multi-process engine at full capacity (the name is kept from the
+    slices where the last two tiers were not ported and raised)."""
+    import torch.distributed as dist
+
+    from goworld_tpu_torch.parallel import multihost as mh
+    from goworld_tpu_torch.parallel.mesh import ShardedNeighborEngine
+    from goworld_tpu_torch.parallel.spatial import (
+        SpatialShardedNeighborEngine,
+    )
+
     p = tneighbor.NeighborParams(capacity=64, cell_size=100.0, grid_x=8,
                                  grid_z=8, space_slots=1, cell_capacity=16,
                                  max_events=256)
@@ -668,14 +684,60 @@ def test_service_runs_on_cuda_unless_told_and_refuses_unported_tiers():
     svc = tbatched.BatchAOIService(p, device="cpu")
     assert svc.device == torch.device("cpu")
     assert svc.engine.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="all-gather"):
-        tbatched.BatchAOIService(p, mesh_shards=2, shard_mode="entity",
-                                 device="cpu")
+    grid16 = tneighbor.NeighborParams(capacity=64, cell_size=100.0,
+                                      grid_x=16, grid_z=16, space_slots=1,
+                                      cell_capacity=16, max_events=256)
+    svc = tbatched.BatchAOIService(grid16, mesh_shards=2,
+                                   shard_mode="entity", device="cpu")
+    assert isinstance(svc.engine, ShardedNeighborEngine)
+    assert svc.engine.backend == "kernel" and svc.engine.n_devices == 2
+    svc = tbatched.BatchAOIService(grid16, mesh_shards=2, device="cpu")
+    assert isinstance(svc.engine, SpatialShardedNeighborEngine)
     with pytest.raises(ValueError, match="shard_mode"):
         tbatched.BatchAOIService(p, mesh_shards=2, shard_mode="allgather",
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(RuntimeError, match="init_multihost"):
         tbatched.BatchAOIService(p, multihost=True, device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mh.init_multihost(f"127.0.0.1:{port}", 1, 0, timeout_s=30.0)
+    try:
+        svc = tbatched.BatchAOIService(p, multihost=True, device="cpu")
+        assert isinstance(svc.engine, mh.MultiHostNeighborEngine)
+        assert svc.engine.backend == "reference"
+        assert svc.params == p  # one process: the alignment is 8 already
+        assert (svc.engine.local_lo, svc.engine.local_capacity) == (0, 64)
+        assert svc._next_tier() is None  # full capacity at once
+        assert svc.alloc_space_id() == 2  # seq * nprocs + pid + 1
+    finally:
+        dist.destroy_process_group()
+        monkeypatch.setattr(mh, "_STORE", None)
+
+
+@pytest.mark.parametrize("pk", [JAX, PORT], ids=lambda pk: pk.name)
+def test_batched_aoi_entity_shard_mode_wired(pk):
+    """``[aoi] shard_mode = entity`` reaches the entity-sharded engine
+    through the runtime (tests/test_entity.py:450), in both packages:
+    two avatars 50 apart see each other after two ticks."""
+    rt = runtime(pk, aoi_mesh_shards=2, aoi_shard_mode="entity")
+    space_cls, avatar, _ = classes(pk)
+    pk.em.register_space(space_cls)
+    pk.em.register_entity(avatar)
+    sp = two_spaces(pk)[0]
+    svc = rt.get_aoi_service()
+    if pk is PORT:
+        from goworld_tpu_torch.parallel.mesh import ShardedNeighborEngine
+    else:
+        from goworld_tpu.parallel.mesh import ShardedNeighborEngine
+    assert isinstance(svc.engine, ShardedNeighborEngine)
+    a = pk.em.create_entity_locally("Avatar")
+    b = pk.em.create_entity_locally("Avatar")
+    sp._enter(a, pk.Vector3(0, 0, 0))
+    sp._enter(b, pk.Vector3(50, 0, 0))
+    rt.tick()
+    rt.tick()
+    assert a.is_interested_in(b) and b.is_interested_in(a)
 
 
 def churn_tier_writebacks(pk):
