@@ -1,6 +1,6 @@
 """Smoke run of goworld_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 From the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit. It
@@ -89,7 +89,29 @@ toolkit. It
 12. ``multihost_cluster``: the two-game ``[aoi] multihost_coordinator``
    deployment of the JAX package's tests/test_multihost.py, started by the
    port's CLI with both games on the card, 10 strict bots across a reload,
-   zero errors, each game joining the group twice.
+   zero errors, each game joining the group twice;
+13. ``unity_demo``: the port's examples/unity_demo in one in-process game
+   runtime on the batched AOI service on the card (16 spaces of 100
+   players and 3 monsters, 1,648 entities, each space one crowd at the
+   spawn point; the players on a walk seeded by ``--seed``, the monsters
+   on their own AI and Tick timers; 300 AOI ticks), with the port's
+   lock-order detector installed over the phase: every 30th tick's
+   interest sets after a flush equal brute force, no entity dropped, a
+   monster chased a player and landed a hit, both mask forms launched and
+   held against their plain version at the run's last cells, and timed;
+   the lock graph of the port's locks acyclic, with no blocking call
+   under one and no deadlock, the service's prewarm and tier-warm threads
+   live;
+14. ``sync_check``: R1's ground truth. Which PyTorch calls the card's
+   sync debug mode reports (``sync_calibration``), then every recorded
+   sync of the dispatches of warmed engines (``SyncRecorder``: the mode's
+   warnings and the Event and Stream waits it does not report): none in
+   the single-device engine's ``step_async`` (a steady tick, a slow tick,
+   a tick with ``logic=`` and ``tiers=``) and the service's ``_dispatch``
+   at the default ``[aoi]``; none that the mode reports in the fused,
+   tiered service dispatch; and every site seen, on those and on the
+   8-strip and 8-shard engines at a cut ``strips_1m``, on one of the
+   port's raw gwlint R1 findings.
 
 The kernels are built first, all at once. It prints bench.py's metrics, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -103,8 +125,12 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
+import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -236,6 +262,36 @@ multihost_coordinator = 127.0.0.1:{coord}
 """
 # The drain forms' small check: the lattice grid's slot/own plane, and an
 # inline budget its events overflow.
+# unity_demo: the port's examples/unity_demo in one in-process game runtime
+# (a loopback kvreg, a sqlite kvdb) on the batched AOI service on the card:
+# 16 spaces at SpaceService's cap of 100 players each
+# (MAX_AVATAR_COUNT_PER_SPACE) plus MySpace's 3 monsters each, 1,648
+# entities at AOI radius 100. Players enter at the spawn point Vector3()
+# and monsters within +-10 of it, so each space starts as one crowd of 103
+# mutually interested entities over the four cells at the origin (cell
+# capacity 128 holds a whole crowd). Players then random-walk N(0, 1) a
+# tick from a generator seeded by --seed; monsters run their own 100 ms AI
+# and 30 ms Tick timers on the runtime's clock. 300 runtime ticks (each an
+# AOI tick) at a 50 ms cadence, the interest sets checked after a flush
+# every 30th; the service's [sync] tiers are service_10k's.
+UNITY_SPACES = 16
+UNITY_PLAYERS = 100
+UNITY = dict(capacity=2048, cell_size=100.0, grid_x=16, grid_z=16,
+             space_slots=32, cell_capacity=128, max_events=65536)
+UNITY_TICKS = 300
+UNITY_CHECK_EVERY = 30
+UNITY_STEP = 1.0
+UNITY_DT = 0.05
+# sync_check: each dispatch recorded after SYNC_WARM unrecorded ticks of
+# the same variant; the strip and entity-sharded engines at strips_1m cut
+# to an eighth (its density, cell, radius and motion on 16 of its 128 grid
+# rows: 131,072 slots, 114,688 active); the tier pass of the single-device
+# engine over the storm's first SYNC_EDGES pairs.
+SYNC_WARM = 3
+SYNC_TICKS = 3
+SYNC_EDGES = 4096
+SYNC_CUT = dict(STRIPS, capacity=131072, grid_z=16, max_events=131072)
+SYNC_ACTIVE = 114688
 LATTICE_CAPACITY = 8192
 LATTICE_DRAIN = 500
 
@@ -3040,6 +3096,621 @@ def hold_graft_entry(device):
             "dropped": int(got[1, 0]), "emitted": k, "first_call_ms": ms}
 
 
+_RECORDER_FRAMES = {"_frames", "_note", "hook", "event_wait", "stream_wait",
+                    "device_wait"}
+
+
+class SyncRecorder:
+    """The syncs of the calls this thread makes inside ``recording()``:
+    each warning of ``torch.cuda.set_sync_debug_mode("warn")`` ("called a
+    synchronizing CUDA operation") and each ``torch.cuda.Event`` or
+    ``Stream`` ``synchronize()`` and ``torch.cuda.synchronize()`` (host
+    waits on the device; on torch 2.11 the mode reports only the
+    Stream's), as a site: the innermost frame of the stack in
+    a file under ``root`` whose path starts with one of ``prefixes``
+    (repo-relative path, line, function), the frames around it, and what
+    was seen. The mode is process-wide, so warnings raised on other threads
+    (the service's warm threads) are counted apart and not recorded."""
+
+    def __init__(self, root, prefixes=("goworld_tpu_torch/",)):
+        self.root = Path(root).resolve()
+        self.prefixes = prefixes
+        self.sites = []
+        self.other_threads = 0
+        self._thread = None
+
+    def _frames(self):
+        out = []
+        for fr in traceback.extract_stack():
+            if fr.name in _RECORDER_FRAMES:
+                continue
+            try:
+                rel = Path(fr.filename).resolve().relative_to(self.root)
+            except ValueError:
+                continue
+            if rel.as_posix().startswith(self.prefixes):
+                out.append((rel.as_posix(), fr.lineno, fr.name))
+        return out
+
+    def _note(self, what, warned_at=None):
+        if threading.get_ident() != self._thread:
+            self.other_threads += 1
+            return
+        frames = self._frames()
+        site = frames[-1] if frames else ("<outside>", 0, "?")
+        self.sites.append({"path": site[0], "line": site[1],
+                           "function": site[2], "what": what,
+                           "warned_at": warned_at, "stack": frames})
+
+    @contextmanager
+    def recording(self):
+        self._thread = threading.get_ident()
+        event_sync = torch.cuda.Event.synchronize
+        stream_sync = torch.cuda.Stream.synchronize
+        device_sync = torch.cuda.synchronize
+        rec = self
+
+        def event_wait(ev):
+            rec._note("Event.synchronize")
+            return event_sync(ev)
+
+        def stream_wait(st):
+            rec._note("Stream.synchronize")
+            return stream_sync(st)
+
+        def device_wait(device=None):
+            rec._note("torch.cuda.synchronize")
+            return device_sync(device)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            shown = warnings.showwarning
+
+            def hook(message, category, filename, lineno, file=None,
+                     line=None):
+                if "synchronizing" in str(message):
+                    try:
+                        at = Path(filename).resolve().relative_to(
+                            self.root).as_posix()
+                    except ValueError:
+                        at = filename
+                    self._note("sync debug mode", (at, lineno))
+                else:
+                    shown(message, category, filename, lineno, file, line)
+
+            warnings.showwarning = hook
+            torch.cuda.Event.synchronize = event_wait
+            torch.cuda.Stream.synchronize = stream_wait
+            torch.cuda.synchronize = device_wait
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.Event.synchronize = event_sync
+                torch.cuda.Stream.synchronize = stream_sync
+                torch.cuda.synchronize = device_sync
+
+
+def sync_calibration(root, device):
+    """Which PyTorch calls the recorder sees on this card and torch, and
+    whether the mode's warning names the caller's line: each probe runs
+    once inside ``recording()``; returns {probe: [what, ...]} and
+    {probe: whether each warning's file and line were the probe's}."""
+    x = torch.arange(1, 1025, device=device)
+    pinned = torch.empty(1024, dtype=torch.int64, pin_memory=True)
+    pageable = torch.empty(1024, dtype=torch.int64)
+    event = torch.cuda.Event()
+    event.record()
+    probes = {
+        "item": lambda: x[0].item(),
+        "tolist": lambda: x[:4].tolist(),
+        "cpu": lambda: x.cpu(),
+        "float": lambda: float(x[0]),
+        "nonzero": lambda: torch.nonzero(x),
+        "unique": lambda: torch.unique(x),
+        "masked_select": lambda: torch.masked_select(x, x > 3),
+        "bool_index": lambda: x[x > 3],
+        "repeat_interleave": lambda: torch.repeat_interleave(x[:4], x[:4]),
+        "repeat_interleave_output_size": lambda: torch.repeat_interleave(
+            x[:4], x[:4], output_size=10),
+        "h2d_pageable": lambda: pageable.to(device),
+        "h2d_pageable_non_blocking": lambda: pageable.to(
+            device, non_blocking=True),
+        "h2d_pinned": lambda: pinned.to(device),
+        "h2d_pinned_non_blocking": lambda: pinned.to(device,
+                                                     non_blocking=True),
+        "d2h_pinned_non_blocking": lambda: pinned.copy_(x, non_blocking=True),
+        "tensor_device": lambda: torch.tensor([1, 2], device=device),
+        "full_device": lambda: torch.full((), 1.0, device=device),
+        "event_synchronize": lambda: event.synchronize(),
+        "stream_synchronize": lambda: (
+            torch.cuda.current_stream().synchronize()),
+        "cuda_synchronize": lambda: torch.cuda.synchronize(),
+    }
+    seen, caller_line = {}, {}
+    for name, fn in probes.items():
+        torch.cuda.synchronize()
+        rec = SyncRecorder(root, ("chip_smoke.py",))
+        with rec.recording():
+            fn()
+        seen[name] = [s["what"] for s in rec.sites]
+        caller_line[name] = [s["warned_at"] == (s["path"], s["line"])
+                             for s in rec.sites
+                             if s["warned_at"] is not None]
+    torch.cuda.synchronize()
+    return seen, caller_line
+
+
+# The recorder's positive control: probes it must see (by the sync debug
+# mode, or by its wraps of the host waits the mode does not report) and
+# probes that must stay silent, so a mode that stays quiet on this torch
+# fails the phase instead of passing (a).
+CALIBRATION_SEEN = {
+    "item": "sync debug mode", "cpu": "sync debug mode",
+    "nonzero": "sync debug mode", "h2d_pageable": "sync debug mode",
+    "stream_synchronize": "sync debug mode",
+    "event_synchronize": "Event.synchronize",
+    "cuda_synchronize": "torch.cuda.synchronize",
+}
+CALIBRATION_SILENT = ("repeat_interleave_output_size",
+                      "h2d_pageable_non_blocking", "h2d_pinned_non_blocking",
+                      "d2h_pinned_non_blocking")
+
+
+def calibration_check(seen):
+    """Fails unless each CALIBRATION_SEEN probe was recorded as its kind
+    and no CALIBRATION_SILENT probe was recorded."""
+    bad = {k: seen[k] for k, what in CALIBRATION_SEEN.items()
+           if what not in seen[k]}
+    bad.update({k: seen[k] for k in CALIBRATION_SILENT if seen[k]})
+    if bad:
+        raise AssertionError(f"sync_check: the recorder's calibration "
+                             f"failed: {bad}")
+
+
+def r1_covers(raw, site) -> bool:
+    """Whether a recorded site lies on one of R1's raw findings: its
+    innermost port frame, or a frame around it (a wait inside a helper
+    that a flagged call reached), within a finding's lines."""
+    for path, line, _ in reversed(site["stack"]):
+        for v in raw:
+            if v.path == path and v.line <= line <= max(v.end_line, v.line):
+                return True
+    return False
+
+
+def sync_dispatches(rec, eng, ticks, world, kw=None):
+    """``ticks`` steps of ``eng`` with each ``step_async`` recorded (the
+    collects are not); ``world()`` gives each step's arrays."""
+    for _ in range(ticks):
+        w = world()
+        with rec.recording():
+            pend = eng.step_async(*w, **(kw or {}))
+        pend.collect()
+    torch.cuda.synchronize()
+
+
+def sync_single(tn, root, device):
+    """The single-device engine at the headline: a steady tick, a slow
+    tick (1% despawned) and a tick with ``logic=`` and ``tiers=``, each on
+    an engine warmed on the same variant. Returns the recorder."""
+    from goworld_tpu_torch.entity.columns import FusedProgram
+
+    p = tn.NeighborParams(**HEADLINE)
+    n = p.capacity
+    world = p.grid_x * p.cell_size
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0, world, (n, 2)).astype(np.float32)
+    active = np.ones(n, bool)
+    space = np.zeros(n, np.int32)
+    radius = np.full(n, 100.0, np.float32)
+    vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+
+    def drift(x, y, z, yaw, dt, vx, vz):
+        return x + vx * dt, y, z + vz * dt, yaw + 10.0 * dt, vx, vz
+
+    def world_now():
+        pos[:] = (pos + vel) % world
+        return pos.copy(), active.copy(), space, radius
+
+    eng = tn.NeighborEngine(p, device=device)
+    eng.reset()
+    storm = eng.step_async(*world_now()).collect()
+    sync_dispatches(SyncRecorder(root), eng, SYNC_WARM, world_now,
+                    {"meta_dirty": False})
+    rec = SyncRecorder(root)
+    sync_dispatches(rec, eng, SYNC_TICKS, world_now, {"meta_dirty": False})
+    active[rng.choice(n, n // 100, replace=False)] = False
+    sync_dispatches(rec, eng, 1, world_now)
+    edges = np.asarray(storm[0][:SYNC_EDGES], np.int32)
+    cap = tn.tier_edge_capacity(len(edges))
+    subj = np.full(cap, n, np.int32)
+    wat = np.full(cap, n, np.int32)
+    subj[:len(edges)], wat[:len(edges)] = edges[:, 1], edges[:, 0]
+    logic = ((FusedProgram(drift, ("vx", "vz")),),
+             active.astype(np.int32), np.zeros(n, np.float32),
+             np.zeros(n, np.float32), 1.0,
+             (vel[:, 0].copy(), vel[:, 1].copy()))
+    kw = {"meta_dirty": False, "logic": logic,
+          "tiers": (1, len(edges), subj, wat, (len(SERVICE_TIERS), 0.5, 0.9),
+                    True)}
+    sync_dispatches(SyncRecorder(root), eng, 1, world_now, kw)
+    sync_dispatches(rec, eng, SYNC_TICKS, world_now, kw)
+    return rec
+
+
+def sync_service(em, tn, root, device, fuse, tiers):
+    """``BatchAOIService._dispatch`` at service_10k's world (fused
+    delivery; ``fuse``: [aoi] fuse_logic, ``tiers``: the [sync] cadences
+    or None), SYNC_TICKS recorded dispatches after SERVICE_WARM +
+    SYNC_WARM unrecorded ticks. Returns the recorder."""
+    rt, svc, ents, Walker, clock, _ = service_world(em, tn, device, fuse,
+                                                    tiers=tiers)
+    rec = SyncRecorder(root)
+    dispatch = svc._dispatch
+
+    def recorded():
+        with rec.recording():
+            return dispatch()
+
+    try:
+        for k in range(SERVICE_WARM + SYNC_WARM + SYNC_TICKS):
+            if k == SERVICE_WARM + SYNC_WARM:
+                svc._dispatch = recorded
+            service_tick(rt, svc, clock)
+        svc.flush()
+        torch.cuda.synchronize()
+    finally:
+        em.cleanup_for_tests()
+    return rec
+
+
+def sync_sharded(engine_cls, tn, make_mesh, root, device):
+    """An 8-way engine (the strip or the entity-sharded tier) at a cut
+    strips_1m world (SYNC_CUT): the storm and SYNC_WARM steady ticks, then
+    SYNC_TICKS recorded steady dispatches. Returns the recorder."""
+    p = tn.NeighborParams(**SYNC_CUT)
+    n = p.capacity
+    world_x = p.grid_x * p.cell_size
+    world_z = p.grid_z * p.cell_size
+    rng = np.random.default_rng(0)
+    pos = np.stack([rng.uniform(0, world_x, n),
+                    rng.uniform(0, world_z, n)], 1).astype(np.float32)
+    active = np.arange(n) < SYNC_ACTIVE
+    space = np.zeros(n, np.int32)
+    radius = np.full(n, 100.0, np.float32)
+    vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+
+    def world_now():
+        pos[:, 0] = (pos[:, 0] + vel[:, 0]) % world_x
+        pos[:, 1] = (pos[:, 1] + vel[:, 1]) % world_z
+        return pos.copy(), active, space, radius
+
+    eng = engine_cls(p, make_mesh(8, device))
+    eng.reset()
+    eng.step_async(*world_now()).collect()
+    sync_dispatches(SyncRecorder(root), eng, SYNC_WARM, world_now,
+                    {"meta_dirty": False})
+    rec = SyncRecorder(root)
+    sync_dispatches(rec, eng, SYNC_TICKS, world_now, {"meta_dirty": False})
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drive_sync_check(tn, tm, ts, make_mesh, root, device):
+    """R1's ground truth on the card (see SYNC_CUT): the syncs each engine's
+    dispatch makes, by ``SyncRecorder``. Asserts (a) none at all in the
+    single-device engine's ``step_async`` and in the service's
+    ``_dispatch`` at the default [aoi] and [sync] (no fused logic, one
+    tier), the main path's contract, and none that the sync debug mode
+    reports in the service's ``_dispatch`` with fused logic and
+    service_10k's tiers, whose Event waits (the previous step's fused
+    outputs and tier vector, which this dispatch's epoch and edge table
+    are built from) are printed; and (b) every site seen on any engine
+    lies on one of R1's raw findings (``run_lint`` for R1 without a
+    baseline, its line pragmas' findings included): static covers
+    dynamic. Prints each engine's sites and
+    counts. The recorder is calibrated first (``calibration_check``): a
+    probe it should see and does not fails the phase."""
+    from goworld_tpu_torch.analysis import core
+    from goworld_tpu_torch.entity import entity_manager as em
+
+    t0 = time.perf_counter()
+    seen, caller_line = sync_calibration(root, device)
+    print(json.dumps({"sync_calibration": seen,
+                      "warning_names_caller_line": caller_line}), flush=True)
+    calibration_check(seen)
+    recs = {
+        "single_device": sync_single(tn, root, device),
+        "service_dispatch": sync_service(em, tn, root, device, False, None),
+        "service_dispatch_fused_tiers": sync_service(
+            em, tn, root, device, True, SERVICE_TIERS),
+        "strips_8": sync_sharded(ts.SpatialShardedNeighborEngine, tn,
+                                 make_mesh, root, device),
+        "entity_8": sync_sharded(tm.ShardedNeighborEngine, tn, make_mesh,
+                                 root, device),
+    }
+    lint = core.run_lint(str(root), rules=("R1",))
+    raw = lint.violations + lint.suppressed
+    out = {"r1_raw_findings": len(raw), "engines": {}}
+    uncovered = []
+    for name, rec in recs.items():
+        sites = {}
+        for s in rec.sites:
+            key = f"{s['path']}:{s['line']} {s['function']} ({s['what']})"
+            sites[key] = sites.get(key, 0) + 1
+            if not r1_covers(raw, s):
+                uncovered.append((name, key, s["stack"]))
+        out["engines"][name] = {"syncs": len(rec.sites), "sites": sites,
+                                "other_threads": rec.other_threads}
+        print(f"sync_check {name}: {len(rec.sites)} syncs at "
+              f"{len(sites)} sites {sites}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"sync_check": out}), flush=True)
+    for name, key, stack in uncovered:
+        print(f"sync_check {name}: {key} is not in R1's raw findings; "
+              f"stack {stack}", flush=True)
+    for name in ("single_device", "service_dispatch"):
+        if recs[name].sites:
+            raise AssertionError(f"sync_check: the main path's {name} "
+                                 f"synced: {out['engines'][name]['sites']}")
+    mode = [s for s in recs["service_dispatch_fused_tiers"].sites
+            if s["what"] == "sync debug mode"]
+    if mode:
+        raise AssertionError(f"sync_check: the fused service dispatch "
+                             f"synced: {mode}")
+    if uncovered:
+        raise AssertionError(f"sync_check: sites not in R1's raw findings: "
+                             f"{uncovered}")
+    return out
+
+
+def unity_runtime(em, tn, device, kvdb_dir):
+    """A fresh in-process game runtime (a loopback kvreg, a sqlite kvdb in
+    ``kvdb_dir``) with unity_demo registered and its services up, its
+    batched AOI service on ``device`` at UNITY with the [sync] tiers of
+    service_10k. Returns (runtime, restore) where ``restore()`` undoes the
+    loopback."""
+    from goworld_tpu_torch import kvdb, kvreg, service
+    from goworld_tpu_torch.entity.slabs import SyncTuning
+    from goworld_tpu_torch.examples import unity_demo
+    from goworld_tpu_torch.kvdb.sqlite import SQLiteKVDB
+    from goworld_tpu_torch.utils import post
+
+    em.cleanup_for_tests()
+    service.clear_for_tests()
+    kvreg.clear_for_tests()
+    post.clear()
+    kvdb.set_backend(SQLiteKVDB(kvdb_dir))
+    register = kvreg.register
+    # One game: a registration applies at once, as if the dispatcher had
+    # echoed it back.
+    kvreg.register = lambda k, v, force=False: kvreg.on_registered(k, v)
+
+    def restore():
+        kvreg.register = register
+        kvdb.set_backend(None)
+        em.cleanup_for_tests()
+        service.clear_for_tests()
+        kvreg.clear_for_tests()
+        post.clear()
+
+    rt = em.runtime
+    rt.aoi_backend = "batched"
+    rt.aoi_device = None if device.type == "cuda" else str(device)
+    rt.aoi_params = tn.NeighborParams(**UNITY)
+    rt.slabs.configure_sync(SyncTuning(tier_cadences=SERVICE_TIERS))
+    unity_demo.register()
+    em.create_nil_space(1)
+    service.setup(1)
+    service.on_deployment_ready()
+    unity_pump(em, lambda: all(service.check_service_entities_ready(s)
+                               for s in ("OnlineService", "SpaceService")))
+    return rt, restore
+
+
+def unity_pump(em, cond, timeout=60.0):
+    """Tick the runtime until ``cond()``."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError("unity_demo: the runtime timed out")
+        em.runtime.tick()
+        time.sleep(0.005)
+
+
+def unity_crowd(em, spaces, players):
+    """``players`` Players a space in ``spaces`` spaces of kind 1, logged in
+    a space's worth at a time (SpaceService sends every request pending
+    when a space loads to that space, so a larger batch would overfill
+    it): each enters at the spawn point beside the space's monsters."""
+    from goworld_tpu_torch.entity.game_client import GameClient
+
+    out = []
+    for k in range(spaces):
+        batch = []
+        for i in range(players):
+            p = em.create_entity_locally("Player")
+            p.set_client(GameClient(f"{k:04d}{i:012d}", 1, p.id))
+            batch.append(p)
+        unity_pump(em, lambda: all(p.space is not None
+                                   and not p.space.is_nil() for p in batch))
+        out += batch
+    by_space = {}
+    for p in out:
+        by_space.setdefault(p.space.id, []).append(p)
+    if sorted(map(len, by_space.values())) != [players] * spaces:
+        raise AssertionError(f"unity_demo: players a space "
+                             f"{sorted(map(len, by_space.values()))}")
+    return out
+
+
+def drive_unity(tn, ek, device, seed):
+    """unity_demo's AOI crowd on the card (see UNITY) with the port's
+    lock-order detector installed over the whole phase (the service's
+    prewarm thread runs during the logins; the tier-warm thread never
+    starts, since every variant is ready in the port, and the phase says
+    whether it did): engine locks seen, their order acyclic, no blocking
+    call under an engine lock, no deadlock. Checks every UNITY_CHECK_EVERY
+    ticks, after a flush, every entity's interest set against brute force
+    over the last dispatched epoch; no entity dropped; a monster chased a
+    player and landed a hit; each mask form launched once a dispatch of
+    the loop (the counts are reset after the prewarm thread has ended) and
+    held against its plain version at the run's last cells. Returns the
+    metrics and the forms' rows."""
+    import random
+    import tempfile
+
+    from goworld_tpu_torch.analysis.lockgraph import LockGraphMonitor
+    from goworld_tpu_torch.entity import entity_manager as em
+    from goworld_tpu_torch.entity.vector import Vector3
+    from goworld_tpu_torch.examples.unity_demo import server as ud
+    from goworld_tpu_torch.utils import opmon
+
+    random.seed(seed)  # the monsters' spawn offsets
+    rng = np.random.default_rng(seed)
+    hits, chases = [], []
+    attack, move_to = ud.Monster._attack, ud.Monster._move_to
+
+    def counted_attack(self, player):
+        if player.attrs.get_int("hp") > 0:
+            hits.append(self.id)
+        return attack(self, player)
+
+    def counted_move_to(self, player):
+        if self.moving_to is not player:
+            chases.append(self.id)
+        return move_to(self, player)
+
+    ud.Monster._attack, ud.Monster._move_to = counted_attack, counted_move_to
+    mon = LockGraphMonitor()
+    checked, ticks, dropped = [], [], 0
+    try:
+        with tempfile.TemporaryDirectory() as kvdb_dir, mon.installed():
+            rt, restore = unity_runtime(em, tn, device, kvdb_dir)
+            try:
+                players = unity_crowd(em, UNITY_SPACES, UNITY_PLAYERS)
+                svc = rt.aoi_service
+                monsters = [e for s in {p.space for p in players}
+                            for e in s.entities if e.typename == "Monster"]
+                want = UNITY_SPACES * ud.MySpace.MONSTERS_PER_SPACE
+                if len(monsters) != want:
+                    raise AssertionError(f"unity_demo: {len(monsters)} "
+                                         f"monsters")
+                if svc._prewarm_thread is not None:
+                    svc._prewarm_thread.join()
+                torch.cuda.synchronize()
+                ek.reset_launch_counts()
+                dispatched = svc._dispatch_count
+                opmon.reset()
+                for k in range(UNITY_TICKS):
+                    step = rng.normal(0, UNITY_STEP, (len(players), 2))
+                    for p, (dx, dz) in zip(players, step):
+                        q = p.position
+                        p.set_position(Vector3(q.x + dx, q.y, q.z + dz))
+                    t = time.perf_counter()
+                    rt.tick()
+                    ticks.append(time.perf_counter() - t)
+                    dropped = max(dropped, svc.engine.last_grid_dropped)
+                    if (k + 1) % UNITY_CHECK_EVERY == 0:
+                        svc.flush()
+                        dropped = max(dropped, svc.engine.last_grid_dropped)
+                        checked.append(unity_check(
+                            svc, players + monsters, device, k + 1))
+                    rest = UNITY_DT - (time.perf_counter() - t)
+                    if rest > 0:
+                        time.sleep(rest)
+                svc.flush()
+                torch.cuda.synchronize()
+                launches = dict(ek.launches)
+                dispatched = svc._dispatch_count - dispatched
+                drain = opmon.dump().get("aoi.drain", {})
+                epoch = svc.engine.carried_epoch()
+                params = svc.params
+                threads = {"prewarm": svc._prewarm_thread is not None,
+                           "tier_warm": svc._tier_warm_thread is not None}
+            finally:
+                restore()
+    finally:
+        ud.Monster._attack, ud.Monster._move_to = attack, move_to
+    report = mon.report()
+    assert_lock_clean(report, "unity_demo")
+    if dropped:
+        raise AssertionError(f"unity_demo: {dropped} entities dropped")
+    if not chases or not hits:
+        raise AssertionError(f"unity_demo: {len(chases)} chases, "
+                             f"{len(hits)} hits landed")
+    want = {f: dispatched if f in ek.FORMS else 0 for f in launches}
+    if not dispatched or launches != want:
+        raise AssertionError(f"unity_demo: launches {launches} for "
+                             f"{dispatched} dispatches")
+    if not threads["prewarm"]:
+        raise AssertionError(f"unity_demo: warm threads {threads}")
+    pos, active, space, _ = epoch
+    rows = kernel_checks(tn, ek, params, pos, pos - np.float32(UNITY_STEP),
+                         space, device, active=active)
+    metrics = {
+        "config": UNITY, "spaces": UNITY_SPACES,
+        "players_a_space": UNITY_PLAYERS,
+        "monsters": len(monsters), "entities": int(active.sum()),
+        "ticks": UNITY_TICKS, "checked_ticks": checked,
+        "dropped": dropped, "chases": len(chases), "hits": len(hits),
+        "tick_p50_ms": pct(ticks, 50), "tick_p99_ms": pct(ticks, 99),
+        "aoi_drain_p50_ms": drain.get("p50", 0.0) * 1e3,
+        "aoi_drain_p99_ms": drain.get("p99", 0.0) * 1e3,
+        "launches": launches, "dispatches": dispatched,
+        "warm_threads": threads,
+        "lock_graph": {
+            "locks_created": report["locks_created"],
+            "engine_sites": len(report["goworld_sites"]),
+            "engine_edges": sum(
+                1 for e in report["edges"]
+                if all(s.strip() in report["goworld_sites"]
+                       for s in e.split("->"))),
+            "engine_cycles": len(report["goworld_cycles"]),
+            "engine_blocking": len(report["goworld_blocking"]),
+            "deadlocks": len(report["deadlocks"]),
+        },
+    }
+    print(f"unity_demo: {metrics['entities']} entities in "
+          f"{UNITY_SPACES} spaces, interest sets equal brute force at "
+          f"ticks {checked}; {len(chases)} chases, {len(hits)} hits; "
+          f"lock graph clean over {len(report['goworld_sites'])} engine "
+          f"lock sites", flush=True)
+    return metrics, rows
+
+
+def unity_check(svc, ents, device, tick):
+    """Every entity's interest set against brute force over the service's
+    last dispatched epoch (call after a flush). Returns ``tick``."""
+    n = svc.params.capacity
+    epoch = svc.engine.carried_epoch()
+    want = interest_pairs(*epoch, device)
+    ents = [e for e in ents if not e.is_destroyed()]
+    got = np.sort(np.fromiter(
+        (e._slot * n + o._slot for e in ents for o in e.interested_in),
+        np.int64))
+    if not np.array_equal(got, want):
+        raise AssertionError(f"unity_demo tick {tick}: interest sets "
+                             f"({len(got)} pairs) differ from brute force "
+                             f"({len(want)} pairs)")
+    return tick
+
+
+def assert_lock_clean(report, what):
+    """The lock-order detector's conditions (the JAX package's
+    ``_assert_lock_clean``): engine locks were seen, their acquisition
+    order is acyclic, no blocking call ran under an engine lock, no lock
+    was re-acquired by its holder."""
+    if report["locks_created"] <= 0 or not report["goworld_sites"]:
+        raise AssertionError(f"{what}: the lock monitor saw no engine lock")
+    for key in ("goworld_cycles", "goworld_blocking", "deadlocks"):
+        if report[key]:
+            raise AssertionError(f"{what}: lock graph {key}: {report[key]}")
+
+
 def ptxas_resources(log):
     """Each kernel's ptxas resource lines from an ``nvcc -Xptxas -v`` log:
     {function: "Used N registers, ...; S bytes stack frame, ..."}."""
@@ -3086,6 +3757,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--multihost-worker"]:  # drive_multihost's process
         return multihost_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    seed = int(sys.argv[sys.argv.index("--seed") + 1]) \
+        if "--seed" in sys.argv else 0
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from goworld_tpu_torch.ops import _build
     from goworld_tpu_torch.ops import boids as tb
@@ -3188,6 +3861,17 @@ def main() -> int:
     for row, mrow in zip(kernels, mh_rows):  # the mask forms
         row["multihost"] = slab_entry(mrow)
         row["max_abs_err"] = max(row["max_abs_err"], mrow["max_abs_err"])
+    unity, unity_rows = drive_unity(tn, ek, device, seed)
+    print(json.dumps({"unity_demo": unity}), flush=True)
+    for row, urow in zip(kernels, unity_rows):  # the mask forms
+        row["unity_demo"] = {
+            "launches": unity["launches"][row["name"]],
+            **{k: urow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "max_abs_err", "skipped_ms")
+               if k in urow},
+        }
+        row["max_abs_err"] = max(row["max_abs_err"], urow["max_abs_err"])
+    drive_sync_check(tn, tm, ts, make_mesh, root, device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,10 @@ managers (``entity.aoi``: the CPU xzlist manager and the batched service,
 (``game``, booted on the card), the dispatcher, the gate, the bot client,
 the wire (``native``, ``netutil``, ``proto``), ``config``, ``telemetry``,
 storage and kvdb backends, services and rebalancing, the ops CLI
-(``python -m goworld_tpu_torch.cli start <server_module>``) and the
-reference's test game (``goworld_tpu_torch.examples.test_game``). Engines,
+(``python -m goworld_tpu_torch.cli start <server_module>``), the
+reference's example servers (``goworld_tpu_torch.examples``), and the
+static and protocol analysis (``analysis``: gwlint, the lock-order
+detector, the model checker). Engines,
 the service and the runtime run on CUDA unless the caller passes
 ``device="cpu"`` (``runtime.aoi_device``; a game's ``[aoi] platform``).
 """

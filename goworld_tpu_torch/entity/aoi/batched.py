@@ -834,7 +834,7 @@ class BatchAOIService:
                 self._fused_take[cls] = True
                 continue
             slots = bucket.slots[:n]
-            if int(slots.max()) >= cap:
+            if int(slots.max()) >= cap:  # gwlint: ok R1 slots is a numpy slab column; host arithmetic
                 if self._fused_take.get(cls, True):
                     _M_FUSED_FALLBACK.labels("slot_overflow").inc()
                 self._fused_take[cls] = False
@@ -877,9 +877,9 @@ class BatchAOIService:
             return
         pending.fused = None
         programs, sel, perm, outs = f
-        new_pos = np.asarray(outs[0])
-        new_y = np.asarray(outs[1])
-        new_yaw = np.asarray(outs[2])
+        new_pos = np.asarray(outs[0])  # gwlint: ok R1 waits for the previous fused step's outputs, which are this dispatch's epoch (chip_smoke.py sync_check records it)
+        new_y = np.asarray(outs[1])  # gwlint: ok R1 waits for the previous fused step's outputs, which are this dispatch's epoch (chip_smoke.py sync_check records it)
+        new_yaw = np.asarray(outs[2])  # gwlint: ok R1 waits for the previous fused step's outputs, which are this dispatch's epoch (chip_smoke.py sync_check records it)
         slabs = self.slabs
         row_sel = sel if perm is None else sel[perm]
         rows = np.flatnonzero(row_sel)
@@ -901,7 +901,7 @@ class BatchAOIService:
                         krows = rows[m]
                         kslots = slots[m]
                         for i, name in enumerate(prog.columns):
-                            slabs.columns[name][kslots] = np.asarray(
+                            slabs.columns[name][kslots] = np.asarray(  # gwlint: ok R1 waits for the previous fused step's outputs, which are this dispatch's epoch (chip_smoke.py sync_check records it)
                                 outs[3 + off + i])[krows]
                     off += nc
                 slabs.flags[slots] |= (
@@ -1028,7 +1028,7 @@ class BatchAOIService:
             return
         pending.tiers = None
         ver, n, arr = t
-        self.slabs.apply_device_tiers(ver, n, np.asarray(arr))
+        self.slabs.apply_device_tiers(ver, n, np.asarray(arr))  # gwlint: ok R1 waits for the previous step's tier vector, written into the edge table before this dispatch snapshots it (chip_smoke.py sync_check records it)
 
     def _dispatch(self) -> tuple:
         """Shared dispatch bookkeeping for both delivery modes: swap the

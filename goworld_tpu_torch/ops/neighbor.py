@@ -693,7 +693,7 @@ def _fused_program_apply(prog, x, y, z, yaw, dt, cols):
     module vmaps it). Outputs come back as tensors of the rows' shape."""
     outs = prog.fn(x, y, z, yaw, dt, *cols)
     return tuple(
-        torch.as_tensor(o, device=x.device).expand(x.shape) for o in outs
+        torch.as_tensor(o, device=x.device).expand(x.shape) for o in outs  # gwlint: ok R1 as_tensor of an output that is already a tensor on the rows' device is a no-op
     )
 
 
@@ -1169,7 +1169,7 @@ class NeighborEngine:
         pending = PendingStep(self, pager, out, fast)
         # The extra outputs' copies queue behind the packed result's.
         if fused_out is not None:
-            _FUSED_VARIANTS.add((self.params, self.backend, programs))
+            _FUSED_VARIANTS.add((self.params, self.backend, programs))  # gwlint: ok R1 a host set of the fused variants run (the one-launch gate); no device state
             pending.fused = (programs, np.asarray(logic[1]), None,
                              tuple(HostArray(a) for a in fused_out))
         if tier_out is not None:
@@ -1186,7 +1186,7 @@ class NeighborEngine:
             self._upload(yaw, np.float32),
             self._upload(sel, np.int32),
             _f32(dt, self.device),
-        ) + tuple(self._upload(c, np.asarray(c).dtype.type) for c in cols)
+        ) + tuple(self._upload(c, np.asarray(c).dtype.type) for c in cols)  # gwlint: ok R1 the fused programs' inputs are the service's numpy slab columns
 
     def _warm_variant(self, programs, col_dtypes, tier_cfg, edge_cap,
                       verdicts: bool) -> None:
@@ -1269,12 +1269,12 @@ def upload(arr, dtype, device: torch.device) -> torch.Tensor:
     the caller's buffer: an engine keeps the tensor as next tick's PREVIOUS
     state, and in-place game updates must not rewrite it. On CUDA the copy
     goes through pinned memory without blocking."""
-    a = np.asarray(arr)
+    a = np.asarray(arr)  # gwlint: ok R1 arr is the caller's host array
     if device.type == "cuda":
         host = torch.empty(a.shape, dtype=_TORCH_DTYPE[dtype], pin_memory=True)
         host.numpy()[...] = a
         return host.to(device, non_blocking=True)
-    return torch.tensor(a.astype(dtype, copy=False), device=device)
+    return torch.tensor(a.astype(dtype, copy=False), device=device)  # gwlint: ok R1 the CPU branch: nothing crosses a bus
 
 
 def start_host_copy(out: torch.Tensor):

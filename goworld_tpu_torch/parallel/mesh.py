@@ -159,7 +159,7 @@ def all_gather(xs: list, mesh: list[torch.device], stacked: bool = False):
     axis. Shards on one device share one result."""
     joined = {}
     for dev in dict.fromkeys(mesh):
-        parts = [x.to(dev) for x in xs]
+        parts = [x.to(dev) for x in xs]  # gwlint: ok R1 a device-to-device copy between shards; the host does not wait
         joined[dev] = torch.stack(parts) if stacked else torch.cat(parts)
     return [joined[dev] for dev in mesh]
 
@@ -168,7 +168,7 @@ def _gathered_worlds(mesh: list[torch.device], arrays_l: tuple) -> dict:
     """The all-gather of both epochs' rows: per device of the mesh, the
     eight full-capacity arrays (ppos, pact, pspc, prad, pos, act, spc,
     rad), each the concatenation of every shard's chunk."""
-    return {dev: tuple(torch.cat([x.to(dev) for x in xs]) for xs in arrays_l)
+    return {dev: tuple(torch.cat([x.to(dev) for x in xs]) for xs in arrays_l)  # gwlint: ok R1 a device-to-device copy between shards; the host does not wait
             for dev in dict.fromkeys(mesh)}
 
 
@@ -301,7 +301,7 @@ def _fused_rows(programs, mesh: list[torch.device], pos_l, y_l, yaw_l,
             tuple(c[d] for c in cols_l))
         parts.append((new_pos, new_y, new_yaw) + new_cols)
     dev0 = mesh[0]
-    return tuple(torch.cat([part[i].to(dev0) for part in parts])
+    return tuple(torch.cat([part[i].to(dev0) for part in parts])  # gwlint: ok R1 a device-to-device copy between shards; the host does not wait
                  for i in range(len(parts[0])))
 
 
@@ -566,7 +566,7 @@ class ShardedPendingStep:
         # space outputs), set by the strip engine's step_async.
         self.fused = None
         dev0 = outs[0].device
-        out = torch.cat([o.to(dev0) for o in outs])
+        out = torch.cat([o.to(dev0) for o in outs])  # gwlint: ok R1 a device-to-device copy between shards; the host does not wait
         self._host, self._done, self._copied = start_host_copy(out)
 
     def is_ready(self) -> bool:

@@ -361,9 +361,9 @@ class MultiHostNeighborEngine:
         counts = torch.zeros((self.n_devices, 2), dtype=torch.int32,
                              device=dev0)
         for d, header in zip(self.shards, headers):
-            counts[d] = header[0].to(dev0)
+            counts[d] = header[0].to(dev0)  # gwlint: ok R1 a device-to-device copy between shards; the host does not wait
         outs = _pack_blocks(headers, pairs,
-                            [counts.to(dev) for dev in self.mesh])
+                            [counts.to(dev) for dev in self.mesh])  # gwlint: ok R1 a device-to-device copy between shards; the host does not wait
         pending = ShardedPendingStep(self, enter_ctx, leave_ctx, outs)
         pending.rank_paging = self.backend == "kernel"
         self._state = cur

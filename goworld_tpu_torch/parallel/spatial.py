@@ -147,8 +147,8 @@ def _exchange_halo(
     for d, dev in enumerate(mesh):
         # from_left = my predecessor's high-seam band; from_right = my
         # successor's low-seam band.
-        fl = [b.to(dev) for b in hi_bands[(d - 1) % n_dev]]
-        fr = [b.to(dev) for b in lo_bands[(d + 1) % n_dev]]
+        fl = [b.to(dev) for b in hi_bands[(d - 1) % n_dev]]  # gwlint: ok R1 a device-to-device copy between shards; the host does not wait
+        fr = [b.to(dev) for b in lo_bands[(d + 1) % n_dev]]  # gwlint: ok R1 a device-to-device copy between shards; the host does not wait
         zeros_h = torch.zeros(2 * fl[0].shape[0], dtype=torch.float32,
                               device=dev)
         out.append((
@@ -513,7 +513,7 @@ def _spatial_step_strips(
          _, _) = combined[d]
         cxc, czc, smc = _bins(p, pos_all, spc_all)
         cxp, czp, smp = _bins(p, ppos_all, pspc_all)
-        base = int(strip_lo[d]) - 2
+        base = int(strip_lo[d]) - 2  # gwlint: ok R1 strip_lo is the host plan's numpy column bounds
         lxc = torch.remainder(cxc - base, p.grid_x).to(torch.int32)
         lxp = torch.remainder(cxp - base, p.grid_x).to(torch.int32)
         # Rows outside the slab's column span (a ghost's OTHER epoch far
@@ -1093,7 +1093,7 @@ class SpatialShardedNeighborEngine:
             # sharding cannot represent it: exact fallback.
             if self._replan(cx, cur_act):
                 new_assign = self._col_owner[cx[act_idx]]
-                migrations += int((new_assign != self.assign[act_idx]).sum())
+                migrations += int((new_assign != self.assign[act_idx]).sum())  # gwlint: ok R1 numpy assignment arrays; host arithmetic
                 self.assign[act_idx] = new_assign
                 self._perm_dirty = True
                 migrations += self._rehome_prev_only(prev_act, cur_act)
@@ -1158,11 +1158,11 @@ class SpatialShardedNeighborEngine:
             programs, sel, y, yaw, dt, cols = logic
             programs = tuple(programs)
             logic_dev = (
-                put(np.asarray(y, np.float32)[perm], np.float32),
-                put(np.asarray(yaw, np.float32)[perm], np.float32),
-                put(np.asarray(sel, np.int32)[perm], np.int32),
+                put(np.asarray(y, np.float32)[perm], np.float32),  # gwlint: ok R1 np.asarray of the caller's numpy world; host layout
+                put(np.asarray(yaw, np.float32)[perm], np.float32),  # gwlint: ok R1 np.asarray of the caller's numpy world; host layout
+                put(np.asarray(sel, np.int32)[perm], np.int32),  # gwlint: ok R1 np.asarray of the caller's numpy world; host layout
                 [_f32(dt, dev) for dev in self.mesh],
-            ) + tuple(put(np.asarray(c)[perm], np.asarray(c).dtype.type)
+            ) + tuple(put(np.asarray(c)[perm], np.asarray(c).dtype.type)  # gwlint: ok R1 np.asarray of the caller's numpy columns; host layout
                       for c in cols)
 
         if fallback_reason is None and self.backend == "reference":

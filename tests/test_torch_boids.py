@@ -231,9 +231,18 @@ def test_overflow_warning_reads_the_stale_count(caplog):
     dropped = int(tb._step(tp, "kernel", torch.tensor(pos), torch.tensor(vel),
                            torch.tensor(active))[3])
     assert dropped > 0
-    with caplog.at_level(logging.WARNING, logger=tb.__name__):
-        for k in range(1, 5):
-            eng.step(pos, vel, active)
-            assert int(eng.last_dropped) == dropped
-            # The count taken at tick 2 is read at tick 4, not before.
-            assert (f"cell overflow: {dropped} " in caplog.text) == (k == 4)
+    # The handler sits on the module's logger itself: a game's log setup
+    # (run in-process by other test files) stops the package logger from
+    # propagating to the root, where caplog listens.
+    logger = logging.getLogger(tb.__name__)
+    logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.WARNING, logger=tb.__name__):
+            for k in range(1, 5):
+                eng.step(pos, vel, active)
+                assert int(eng.last_dropped) == dropped
+                # The count taken at tick 2 is read at tick 4, not before.
+                assert (f"cell overflow: {dropped} " in caplog.text) == \
+                    (k == 4)
+    finally:
+        logger.removeHandler(caplog.handler)
