@@ -80,16 +80,28 @@ toolkit. It
    kernels and the event kernel's launch (``gw_event_mask``); their summed
    device time over the window is the game's busy share. It also runs
    ``graft_entry.entry()`` once on the card against the reference step;
-11. ``multihost``: two processes of this script (``--multihost-worker``)
-   on the card, 4 shards each, one Gloo group: on both backends the union
-   of their events equals the single-device engine's stream each tick, and
-   the process gather's time is printed; both mask forms are held against
-   their plain version at the slab shard 0 launched them on (copied: 4
-   space slots), and timed;
+11. ``multihost``: processes of this script (``--multihost-worker``), 4
+   shards each: one process on its card, whose gather takes the device
+   route over NCCL; two processes pinned to one card, which take the host
+   route (a Gloo gather of host rows); and, with two or more cards, two
+   processes on two cards over NCCL. On both backends the union of each
+   run's events equals the single-device engine's stream each tick, the
+   two-card run's equal the host route's process by process, and each
+   route's gather and step times are printed; both mask forms are held
+   against their plain version at the slab global shard 0 launched them
+   on in the host route's run (copied: 4 space slots), and timed;
+   then ``multihost_1m``, with four cards: BASELINE config 5 (strips_1m's
+   world) over 4 processes x 2 shards, one card each, the device route
+   over NCCL, the slab kernel: every tick's union of events equal to the
+   single-device engine's; tick, gather and step times, each card's peak
+   memory, and both mask forms held and timed at the slab global shard 0
+   launched them on;
 12. ``multihost_cluster``: the two-game ``[aoi] multihost_coordinator``
    deployment of the JAX package's tests/test_multihost.py, started by the
-   port's CLI with both games on the card, 10 strict bots across a reload,
-   zero errors, each game joining the group twice;
+   port's CLI, 10 strict bots across a reload, zero errors, each game
+   joining the group twice; with two or more cards the games take a card
+   each and the device route, on one card they share it and take the host
+   route;
 13. ``unity_demo``: the port's examples/unity_demo in one in-process game
    runtime on the batched AOI service on the card (16 spaces of 100
    players and 3 monsters, 1,648 entities, each space one crowd at the
@@ -110,8 +122,13 @@ toolkit. It
    a tick with ``logic=`` and ``tiers=``) and the service's ``_dispatch``
    at the default ``[aoi]``; none that the mode reports in the fused,
    tiered service dispatch; and every site seen, on those and on the
-   8-strip and 8-shard engines at a cut ``strips_1m``, on one of the
-   port's raw gwlint R1 findings.
+   8-strip and 8-shard engines at a cut ``strips_1m`` and the
+   multi-process engine's device route over NCCL in one process at that
+   cut, on one of the port's raw gwlint R1 findings.
+
+Phases that need more cards than the machine has print a line saying they
+did not run; on a machine with four cards (``chiprun --chips 4``) every
+phase runs.
 
 The kernels are built first, all at once. It prints bench.py's metrics, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
@@ -203,8 +220,11 @@ SERVICE_LOGOUT_TICK = SERVICE_WARM + 45
 ENTITY_SERVICE = dict(SERVICE, capacity=10304, grid_x=16, grid_z=16)
 ENTITY_SERVICE_SHARDS = 8
 ENTITY_SERVICE_TICKS = 10
-# multihost: two OS processes on the one card, 4 shards each, over Gloo on
-# 127.0.0.1 (parallel/multihost.py), on the world of the JAX package's
+# multihost: OS processes of this script, 4 shards each, in one
+# torch.distributed group on 127.0.0.1 (parallel/multihost.py): one process
+# (the device route over NCCL), two on one card (the host route over Gloo)
+# and, with two or more cards, two on two cards (NCCL), on the world of the
+# JAX package's
 # tests/test_parallel.py test_sharded_structural_at_scale: 65,536 slots,
 # 64x64 cells of 100, 4 space slots, cell capacity 64, max_events 8,192
 # (1,024 a shard, so the storm pages every shard), radius 80, 64 spaces,
@@ -215,11 +235,24 @@ MULTIHOST = dict(capacity=65536, cell_size=100.0, grid_x=64, grid_z=64,
 MULTIHOST_PROCS = 2
 MULTIHOST_LOCAL = 4
 MULTIHOST_TICKS = 12
+# multihost_1m: BASELINE.json's config 5 ("1M entities, 8 game processes
+# sharded, all-gather positions over ICI") on four cards: strips_1m's
+# world, 4 processes x 2 local shards (8 global shards, 16 grid rows a
+# slab), the slab kernel, the device route over NCCL; the storm,
+# MULTIHOST_1M_STEADY steady ticks (positions only uploaded) and a slow
+# tick (1% despawned).
+MULTIHOST_1M_PROCS = 4
+MULTIHOST_1M_LOCAL = 2
+MULTIHOST_1M_STEADY = 12
+# Seconds a multihost phase's group join, or a collective, may wait.
+MULTIHOST_TIMEOUT_S = 300.0
 # multihost_cluster: the JAX package's tests/test_multihost.py
 # MH_CLUSTER_INI (1 dispatcher, 2 games, 1 gate, [aoi]
 # multihost_coordinator) started by the port's CLI with [aoi] platform =
-# auto, so both games' services share the card; each game's debug HTTP on
-# for /metrics. 10 strict bots for 30 s, a reload at 15 s.
+# auto: each game's service on its rank's card, so on a one-card machine
+# both share the card (the host route) and with two or more cards they
+# take two (the device route); each game's debug HTTP on for /metrics. 10
+# strict bots for 30 s, a reload at 15 s.
 MH_CLUSTER_BOTS = 10
 MH_CLUSTER_RUN_S = 30.0
 MH_CLUSTER_RELOAD_S = 15.0
@@ -288,7 +321,7 @@ UNITY_DT = 0.05
 # rows: 131,072 slots, 114,688 active); the tier pass of the single-device
 # engine over the storm's first SYNC_EDGES pairs.
 SYNC_WARM = 3
-SYNC_TICKS = 3
+SYNC_CHECK_TICKS = 3
 SYNC_EDGES = 4096
 SYNC_CUT = dict(STRIPS, capacity=131072, grid_z=16, max_events=131072)
 SYNC_ACTIVE = 114688
@@ -1080,6 +1113,7 @@ def drive_strips(tn, ek, ts, make_mesh, device):
     radius = np.full(n, 100.0, np.float32)
     vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
     mesh = make_mesh(STRIPS_N, device)
+    families0 = strip_families()
     eng = ts.SpatialShardedNeighborEngine(p, mesh)
     if eng.backend != "kernel" or eng.drain_inline != eng.events_inline:
         raise AssertionError("the default strip engine is not the kernel "
@@ -1087,6 +1121,7 @@ def drive_strips(tn, ek, ts, make_mesh, device):
     eng.reset()
     ticks = []  # (label, world, out, mode, fast)
     paged = []  # (full_repage, shard sides paged) of each tick
+    bands = []  # each strip tick's occupied band rows [strips, 2]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ek.reset_launch_counts()
@@ -1094,9 +1129,14 @@ def drive_strips(tn, ek, ts, make_mesh, device):
     def world_now():
         return (pos.copy(), active.copy(), space, radius)
 
+    def note_bands():
+        if eng.last_mode == "spatial":
+            bands.append(eng._last_band_counts.copy())
+
     def step(label, meta_dirty=True):
         w = world_now()
         pend = eng.step_async(*w, meta_dirty=meta_dirty)
+        note_bands()
         mode = eng.last_mode
         out = pend.collect()
         ticks.append((label, w, out, mode, eng.last_fast_tick))
@@ -1136,6 +1176,7 @@ def drive_strips(tn, ek, ts, make_mesh, device):
             t0 = time.perf_counter()
             pend = eng.step_async(*w, meta_dirty=False)
             dispatch_s.append(time.perf_counter() - t0)
+            note_bands()
             nxt = (f"pipelined {k + 2}", w, eng.last_mode, pend)
         if pending is not None:
             label, w_prev, mode, pend_prev = pending
@@ -1152,6 +1193,7 @@ def drive_strips(tn, ek, ts, make_mesh, device):
         walk(pos, vel, world)
         w = world_now()
         pend = eng.step_async(*w, meta_dirty=False)
+        note_bands()
         mode = eng.last_mode
         pend.wait_device()
         t0 = time.perf_counter()
@@ -1191,6 +1233,8 @@ def drive_strips(tn, ek, ts, make_mesh, device):
     for label, _, out, _, _ in ticks:
         check_pairs(out[0], n, f"strips_1m {label} enters")
         check_pairs(out[1], n, f"strips_1m {label} leaves")
+    telemetry = hold_strip_families(eng, families0, strip_families(),
+                                    spatial_ticks, bands)
     metrics = {
         "config": {**STRIPS, "active": STRIPS_ACTIVE, "strips": STRIPS_N,
                    "strip_cols": eng.strip_cols, "halo_cap": eng.halo_cap,
@@ -1218,6 +1262,7 @@ def drive_strips(tn, ek, ts, make_mesh, device):
         "dropped": [tk[2][2] for tk in ticks],
         "peak_memory_allocated_bytes": peak,
         "launches": launches,
+        "telemetry": telemetry,
     }
     slab = kept["slab"]
     del eng, pend, pend_prev, kept
@@ -1248,6 +1293,84 @@ def drive_strips(tn, ek, ts, make_mesh, device):
     for row in rows:
         row["launches"] = launches[row["name"]]
     return metrics, rows
+
+
+STRIP_FAMILIES = (
+    "aoi_spatial_fast_ticks_total", "aoi_strip_ring_distance",
+    "aoi_shard_count", "aoi_shard_entities", "aoi_halo_bytes_total",
+    "aoi_allgather_bytes_total", "aoi_halo_bytes_per_tick",
+    "aoi_allgather_equiv_bytes_per_tick", "aoi_shard_migrations_total",
+    "aoi_shard_fallback_total", "aoi_shard_replans_total",
+    "aoi_link_bytes_total",
+)
+
+
+def strip_families() -> dict:
+    """The port registry's strip families: {name: {label values: value}}
+    (of ``aoi_link_bytes_total`` the halo children only)."""
+    from goworld_tpu_torch import telemetry
+
+    out = {}
+    for name in STRIP_FAMILIES:
+        fam = telemetry.family(name)
+        out[name] = {} if fam is None else {
+            key: child.value for key, child in fam.children()
+            if name != "aoi_link_bytes_total" or key[0] == "halo"}
+    return out
+
+
+def hold_strip_families(eng, before, after, strip_ticks, bands) -> dict:
+    """The strip families over a run of ``eng`` (counters as their growth
+    from ``before``) against the engine's attributes and the run's own
+    counts: ``strip_ticks`` strip ticks whose bands held ``bands`` occupied
+    rows. Returns them by name."""
+    from goworld_tpu_torch.parallel.spatial import HALO_ROW_BYTES
+
+    counters = {
+        "aoi_spatial_fast_ticks_total": {(): eng.total_fast_ticks},
+        "aoi_halo_bytes_total": {(): strip_ticks * eng.halo_bytes_per_tick},
+        "aoi_allgather_bytes_total": {
+            (): eng.total_fallbacks * eng.allgather_bytes_per_tick},
+        "aoi_shard_migrations_total": {(): eng.total_migrations},
+        "aoi_shard_fallback_total": {("teleport",): 1},
+        "aoi_shard_replans_total": {(): eng.total_replans},
+        "aoi_link_bytes_total": {},
+    }
+    d = eng.n_devices
+    rows = np.sum(bands, axis=0)
+    for s_ in range(d):
+        for k, peer in ((0, (s_ - 1) % d), (1, (s_ + 1) % d)):
+            counters["aoi_link_bytes_total"][("halo", f"{s_}->{peer}")] = (
+                rows[s_, k] * HALO_ROW_BYTES)
+    # A counter that did not grow has no growth to read.
+    want = {name: {k: float(v) for k, v in vals.items() if v}
+            for name, vals in counters.items()}
+    grown = {name: {k: v - before[name].get(k, 0.0)
+                    for k, v in after[name].items()
+                    if v != before[name].get(k, 0.0)}
+             for name in counters}
+    gauges = {
+        "aoi_shard_count": {(): float(d)},
+        "aoi_shard_entities": {(str(k),): float(eng.shard_population[k])
+                               for k in range(d)},
+        "aoi_halo_bytes_per_tick": {(): float(eng.halo_bytes_per_tick)},
+        "aoi_allgather_equiv_bytes_per_tick": {
+            (): float(eng.allgather_bytes_per_tick)},
+        "aoi_strip_ring_distance": {},
+    }
+    for name, values in gauges.items():
+        if after[name] != values:
+            raise AssertionError(f"strips_1m: {name} {after[name]}, the "
+                                 f"engine's {values}")
+    for name, values in want.items():
+        if grown[name] != values:
+            raise AssertionError(f"strips_1m: {name} grew {grown[name]}, "
+                                 f"the run's {values}")
+    out = {name: {",".join(k) or "": v for k, v in vals.items()}
+           for name, vals in {**grown, **gauges}.items()}
+    print(f"strips_1m: strip families equal the engine's and the run's "
+          f"counts: {json.dumps(out)}", flush=True)
+    return out
 
 
 def drive_entity(tn, ek, tm, make_mesh, device):
@@ -1556,28 +1679,64 @@ def multihost_drift(rng, pos):
                    6400).astype(np.float32)
 
 
-def multihost_worker(rank: int, coord: str, outfile: str) -> int:
-    """One process of the multihost phase: joins the group, steps both
-    backends' engines with its own rows over MULTIHOST_TICKS ticks, and
-    saves its events, its gather and step times and its kernel launches;
-    rank 0 also global shard 0's slab of the kernel backend's tick 1."""
-    import torch.distributed as dist
+def multihost_trace(n):
+    """The multihost phase's ticks: (label, (pos, active, space, radius),
+    meta_dirty); only positions change after the storm."""
+    rng, pos, active, space, radius = multihost_world(n)
+    for tick in range(MULTIHOST_TICKS):
+        yield f"tick {tick}", (pos, active, space, radius), tick == 0
+        pos = multihost_drift(rng, pos)
 
+
+def multihost_1m_trace(n):
+    """multihost_1m's ticks (strips_1m's world, see MULTIHOST_1M_PROCS):
+    the storm, the steady ticks, the slow tick."""
+    world = STRIPS["grid_x"] * STRIPS["cell_size"]
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0, world, (n, 2)).astype(np.float32)
+    active = np.arange(n) < STRIPS_ACTIVE
+    space = np.zeros(n, np.int32)
+    radius = np.full(n, 100.0, np.float32)
+    vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+    yield "storm", (pos.copy(), active.copy(), space, radius), True
+    for k in range(MULTIHOST_1M_STEADY):
+        walk(pos, vel, world)
+        yield f"steady {k + 1}", (pos.copy(), active, space, radius), False
+    despawn = rng.choice(np.flatnonzero(active), STRIPS_ACTIVE // 100,
+                         replace=False)
+    active = active.copy()
+    active[despawn] = False
+    yield "slow", (pos.copy(), active, space, radius), True
+
+
+# Each worker configuration: (params, local shards, backends, trace).
+MULTIHOST_CONFIGS = {
+    "multihost": (MULTIHOST, MULTIHOST_LOCAL, ("reference", "kernel"),
+                  multihost_trace),
+    "multihost_1m": (STRIPS, MULTIHOST_1M_LOCAL, ("kernel",),
+                     multihost_1m_trace),
+}
+
+
+def multihost_worker(rank: int, nprocs: int, coord: str, outfile: str,
+                     config: str) -> int:
+    """One process of a multihost phase: joins the group of ``nprocs``
+    processes, steps ``config``'s engines (MULTIHOST_CONFIGS) with its own
+    rows, and saves its gather route, events, tick and gather times,
+    kernel launches and peak memory; rank 0 also global shard 0's slab of
+    the kernel backend's tick 1."""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from goworld_tpu_torch.ops import event_kernel as ek
     from goworld_tpu_torch.ops.neighbor import NeighborParams
     from goworld_tpu_torch.parallel import mesh as tm
+    from goworld_tpu_torch.parallel import multihost as mh
     from goworld_tpu_torch.parallel.mesh import make_mesh
-    from goworld_tpu_torch.parallel.multihost import (
-        MultiHostNeighborEngine,
-        init_multihost,
-    )
 
-    init_multihost(coord, MULTIHOST_PROCS, rank, timeout_s=300.0)
-    p = NeighborParams(**MULTIHOST)
-    dump = {}
-    # Rank 0's first local shard is global shard 0: its slab (copied, with
-    # several space slots) of the kernel backend's tick 1 is kept.
+    params, local, backends, trace = MULTIHOST_CONFIGS[config]
+    mh.init_multihost(coord, nprocs, rank, timeout_s=MULTIHOST_TIMEOUT_S)
+    p = NeighborParams(**params)
+    dump = {"route": np.array(mh.gather_route()),
+            "card": np.array(torch.cuda.get_device_name())}
     kept = {}
     mask = tm.event_mask
 
@@ -1585,174 +1744,320 @@ def multihost_worker(rank: int, coord: str, outfile: str) -> int:
         if dual and not kept:
             kept["slab"] = cells.clone()
         return mask(cells, dual, *args, **kw)
-    for backend in ("reference", "kernel"):
-        eng = MultiHostNeighborEngine(
-            p, make_mesh(MULTIHOST_LOCAL, "cuda"), backend=backend)
+    for backend in backends:
+        eng = mh.MultiHostNeighborEngine(p, make_mesh(local, "cuda"),
+                                         backend=backend)
         eng.reset()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         ek.reset_launch_counts()
-        rng, pos, active, space, radius = multihost_world(p.capacity)
         lo, lc = eng.local_lo, eng.local_capacity
-        gather, step = [], []
-        for tick in range(MULTIHOST_TICKS):
-            keep = backend == "kernel" and tick == 1 and rank == 0
-            if keep:
+        gather, tick_s = [], []
+        for tick, (_, world, meta_dirty) in enumerate(trace(p.capacity)):
+            if backend == "kernel" and tick == 1 and rank == 0:
                 tm.event_mask = keep_slab
             t0 = time.perf_counter()
             try:
-                pend = eng.step_async(pos[lo:lo + lc], active[lo:lo + lc],
-                                      space[lo:lo + lc], radius[lo:lo + lc])
+                pend = eng.step_async(*(a[lo:lo + lc] for a in world),
+                                      meta_dirty=meta_dirty)
                 e, l, dropped = pend.collect()
             finally:
                 tm.event_mask = mask
-            step.append(time.perf_counter() - t0)
+            tick_s.append(time.perf_counter() - t0)
             gather.append(pend.gather_ms)
             dump[f"{backend}_enter_{tick}"] = e
             dump[f"{backend}_leave_{tick}"] = l
             dump[f"{backend}_dropped_{tick}"] = np.array([dropped])
-            pos = multihost_drift(rng, pos)
         torch.cuda.synchronize()
         dump[f"{backend}_gather_ms"] = np.array(gather)
-        dump[f"{backend}_step_ms"] = np.array(step) * 1000.0
+        dump[f"{backend}_tick_ms"] = np.array(tick_s) * 1000.0
         dump[f"{backend}_launches"] = np.array(
             [ek.launches[f] for f in ek.FORMS])
+        dump[f"{backend}_peak_bytes"] = np.array(
+            [torch.cuda.max_memory_allocated()])
         dump["local_lo"] = np.array([lo])
         dump["local_capacity"] = np.array([lc])
-    if rank == 0:
+        del eng, pend
+    if "slab" in kept:
         dump["kernel_slab"] = kept["slab"].cpu().numpy()
-    dist.barrier()
-    dist.destroy_process_group()
+    torch.distributed.barrier()
+    mh.leave()
     np.savez(outfile, **dump)
-    print(f"multihost worker {rank}: ok", flush=True)
+    print(f"multihost worker {rank}/{nprocs} ({config}): ok", flush=True)
     return 0
 
 
-def drive_multihost(tn, ek, root: Path, device):
-    """multihost: MULTIHOST_PROCS OS processes of this script on the card,
-    MULTIHOST_LOCAL shards each, one Gloo group; both backends. Each tick
-    the union of the processes' events equals the single-device engine's on
-    the card, with every pair once; under "reference" each process holds
-    exactly its own rows' events; the storm pages. Reports the gather's and
-    the step's times. Then both mask forms against their plain version at
-    the slab rank 0 kept (the copied slab of 4 space slots)."""
+def visible_cards() -> list[str]:
+    """The cards this process sees, as CUDA_VISIBLE_DEVICES names them."""
     import os
-    import shutil
 
-    run_dir = root / "multihost_run"
-    shutil.rmtree(run_dir, ignore_errors=True)
-    run_dir.mkdir(parents=True)
+    seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = (seen.split(",") if seen
+             else [str(k) for k in range(torch.cuda.device_count())])
+    return cards[:torch.cuda.device_count()]
+
+
+def run_multihost_workers(root: Path, run_dir: Path, config: str,
+                          nprocs: int, cards: list[str], timeout=600):
+    """``nprocs`` worker processes of ``config`` that see only ``cards``
+    (rank r takes the (r % len(cards))-th); their saved dumps, rank order.
+    Every worker is killed in a ``finally``."""
+    import os
+
     coord = f"127.0.0.1:{free_port()}"
-    outs = [run_dir / f"worker{i}.npz" for i in range(MULTIHOST_PROCS)]
-    env = dict(os.environ, PYTHONPATH=str(root))
+    outs = [run_dir / f"{config}_{nprocs}p{len(cards)}c_{i}.npz"
+            for i in range(nprocs)]
+    env = dict(os.environ, PYTHONPATH=str(root),
+               CUDA_VISIBLE_DEVICES=",".join(cards))
     procs = [subprocess.Popen(
         [sys.executable, str(root / "chip_smoke.py"), "--multihost-worker",
-         str(i), coord, str(outs[i])],
+         str(i), str(nprocs), coord, str(outs[i]), config],
         cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for i in range(MULTIHOST_PROCS)]
+        text=True) for i in range(nprocs)]
     logs = []
     try:
         for proc in procs:
-            logs.append(proc.communicate(timeout=600)[0])
+            logs.append(proc.communicate(timeout=timeout)[0])
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     for i, (proc, log) in enumerate(zip(procs, logs)):
-        (run_dir / f"worker{i}.log").write_text(log)
+        (run_dir / f"{outs[i].stem}.log").write_text(log)
         if proc.returncode != 0:
-            raise AssertionError(f"multihost: worker {i} failed "
+            raise AssertionError(f"{config}: worker {i} of {nprocs} on "
+                                 f"{len(cards)} card(s) failed "
                                  f"({proc.returncode}):\n{log[-3000:]}")
-    data = [dict(np.load(f)) for f in outs]
+    return [dict(np.load(f)) for f in outs]
+
+
+def hold_multihost_run(data, want, n, backend, what):
+    """Each tick: the union of the processes' events equals the single-
+    device engine's (``want``), every pair once, and every process reports
+    its dropped count; under "reference" each process holds exactly its own
+    rows' events."""
+    spans = [(int(d["local_lo"][0]), int(d["local_capacity"][0]))
+             for d in data]
+    for tick, (we, wl, wd) in enumerate(want):
+        for side, w in (("enter", we), ("leave", wl)):
+            parts = [d[f"{backend}_{side}_{tick}"] for d in data]
+            union = np.concatenate(parts)
+            if len(union) != len(w) or not np.array_equal(
+                    pair_keys(union, n), pair_keys(w, n)):
+                raise AssertionError(
+                    f"{what} {backend} tick {tick}: the processes' "
+                    f"{side}s ({len(union)}) differ from the single-"
+                    f"device engine's ({len(w)})")
+            if backend == "reference":
+                for (lo, lc), part in zip(spans, parts):
+                    if ((part[:, 0] < lo) | (part[:, 0] >= lo + lc)).any():
+                        raise AssertionError(
+                            f"{what} reference tick {tick}: a process "
+                            f"got another's rows' {side}s")
+        for d in data:
+            if int(d[f"{backend}_dropped_{tick}"][0]) != wd:
+                raise AssertionError(f"{what} {backend} tick {tick}: "
+                                     f"dropped differs")
+
+
+def multihost_times(data, backend):
+    """A run's gather, step (the tick less its gather) and tick times over
+    its processes, the storm left out, and its storm's."""
+    gather = np.concatenate([d[f"{backend}_gather_ms"][1:] for d in data])
+    ticks = np.concatenate([d[f"{backend}_tick_ms"][1:] for d in data])
+    steps = np.concatenate([d[f"{backend}_tick_ms"][1:]
+                            - d[f"{backend}_gather_ms"][1:] for d in data])
+    return {
+        "gather_p50_ms": float(np.percentile(gather, 50)),
+        "gather_p99_ms": float(np.percentile(gather, 99)),
+        "step_p50_ms": float(np.percentile(steps, 50)),
+        "step_p99_ms": float(np.percentile(steps, 99)),
+        "tick_p50_ms": float(np.percentile(ticks, 50)),
+        "tick_p99_ms": float(np.percentile(ticks, 99)),
+        "storm_gather_ms": [float(d[f"{backend}_gather_ms"][0])
+                            for d in data],
+        "storm_tick_ms": [float(d[f"{backend}_tick_ms"][0]) for d in data],
+    }
+
+
+def drive_multihost(tn, ek, root: Path, device):
+    """multihost (see MULTIHOST): the runs of ``multihost_runs`` on both
+    backends, each held tick by tick against the single-device engine on
+    the card (the storm pages); the two-card run's events also equal the
+    host route's process by process. Reports each run's route and times.
+    Then both mask forms against their plain version at the slab the host
+    route's rank 0 kept (the copied slab of 4 space slots)."""
+    import shutil
+
+    run_dir = root / "multihost_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    cards = visible_cards()
     p = tn.NeighborParams(**MULTIHOST)
     n = p.capacity
     single = tn.NeighborEngine(p, backend="kernel", device=device)
     single.reset()
-    rng, pos, active, space, radius = multihost_world(n)
-    want = []
-    for _ in range(MULTIHOST_TICKS):
-        want.append(single.step(pos, active, space, radius))
-        pos = multihost_drift(rng, pos)
+    want = [single.step(*w) for _, w, _ in multihost_trace(n)]
     del single
-    spans = [(int(d["local_lo"][0]), int(d["local_capacity"][0]))
-             for d in data]
-    if spans != [(k * n // MULTIHOST_PROCS, n // MULTIHOST_PROCS)
-                 for k in range(MULTIHOST_PROCS)]:
-        raise AssertionError(f"multihost: row spans {spans}")
-    metrics = {"config": {**MULTIHOST, "processes": MULTIHOST_PROCS,
-                          "local_shards": MULTIHOST_LOCAL,
-                          "ticks": MULTIHOST_TICKS, "backend": "gloo"},
-               "backends": {}}
-    for backend in ("reference", "kernel"):
-        for tick, (we, wl, wd) in enumerate(want):
-            for k, side, w in ((0, "enter", we), (1, "leave", wl)):
-                union = np.concatenate([d[f"{backend}_{side}_{tick}"]
-                                        for d in data])
-                if len(union) != len(w) or not np.array_equal(
-                        pair_keys(union, n), pair_keys(w, n)):
-                    raise AssertionError(
-                        f"multihost {backend} tick {tick}: the processes' "
-                        f"{side}s ({len(union)}) differ from the single-"
-                        f"device engine's ({len(w)})")
-                if backend == "reference":
-                    for lo, lc in spans:
-                        mine = ((union[:, 0] >= lo)
-                                & (union[:, 0] < lo + lc)).sum()
-                        d = data[spans.index((lo, lc))]
-                        if mine != len(d[f"{backend}_{side}_{tick}"]):
-                            raise AssertionError(
-                                f"multihost reference tick {tick}: a "
-                                f"process got another's rows' {side}s")
-            for d in data:
-                if int(d[f"{backend}_dropped_{tick}"][0]) != wd:
-                    raise AssertionError(f"multihost {backend} tick {tick}: "
-                                         f"dropped differs")
-        if len(want[0][0]) <= p.max_events:
-            raise AssertionError("multihost: the storm did not page")
-        gather = np.concatenate([d[f"{backend}_gather_ms"][1:]
-                                 for d in data])
-        step = np.concatenate([d[f"{backend}_step_ms"][1:] for d in data])
-        launches = sum(d[f"{backend}_launches"] for d in data)
-        metrics["backends"][backend] = {
-            "gather_p50_ms": float(np.percentile(gather, 50)),
-            "gather_p99_ms": float(np.percentile(gather, 99)),
-            "storm_gather_ms": [float(d[f"{backend}_gather_ms"][0])
-                                for d in data],
-            "step_p50_ms": float(np.percentile(step, 50)),
-            "step_p99_ms": float(np.percentile(step, 99)),
-            "launches": dict(zip(ek.FORMS, map(int, launches))),
-        }
-        if backend == "kernel" and any(
-                v != MULTIHOST_TICKS * MULTIHOST_PROCS * MULTIHOST_LOCAL
-                for v in metrics["backends"][backend]["launches"].values()):
-            raise AssertionError(f"multihost: kernel launches "
-                                 f"{metrics['backends'][backend]}")
+    if len(want[0][0]) <= p.max_events:
+        raise AssertionError("multihost: the storm did not page")
+    plan = {"one_process": (1, cards[:1], "device"),
+            "two_processes_one_card": (2, cards[:1], "host")}
+    if len(cards) >= 2:
+        plan["two_processes_two_cards"] = (2, cards[:2], "device")
+    else:
+        print("multihost: the two-card run did not run: it needs two CUDA "
+              "devices and this machine has 1", flush=True)
+    metrics = {"config": {**MULTIHOST, "local_shards": MULTIHOST_LOCAL,
+                          "ticks": MULTIHOST_TICKS}, "runs": {}}
+    runs = {}
+    for name, (nprocs, run_cards, route) in plan.items():
+        data = run_multihost_workers(root, run_dir, "multihost", nprocs,
+                                     run_cards)
+        routes = [str(d["route"]) for d in data]
+        if routes != [route] * nprocs:
+            raise AssertionError(f"multihost {name}: routes {routes}, "
+                                 f"not {route}")
+        run = {"processes": nprocs, "cards": len(run_cards),
+               "route": route, "backends": {}}
+        for backend in ("reference", "kernel"):
+            hold_multihost_run(data, want, n, backend, f"multihost {name}")
+            launches = sum(d[f"{backend}_launches"] for d in data)
+            run["backends"][backend] = {
+                **multihost_times(data, backend),
+                "launches": dict(zip(ek.FORMS, map(int, launches))),
+            }
+            if backend == "kernel" and any(
+                    v != MULTIHOST_TICKS * nprocs * MULTIHOST_LOCAL
+                    for v in launches):
+                raise AssertionError(f"multihost {name}: kernel launches "
+                                     f"{run['backends'][backend]}")
+        runs[name] = data
+        metrics["runs"][name] = run
+        print(f"multihost {name}: {nprocs} process(es) x {MULTIHOST_LOCAL} "
+              f"shards on {len(run_cards)} card(s), route {route}, both "
+              f"backends, {MULTIHOST_TICKS} ticks equal to the single-device "
+              f"engine; gather p50 "
+              f"{run['backends']['kernel']['gather_p50_ms']:.3f} ms "
+              f"(kernel), {run['backends']['reference']['gather_p50_ms']:.3f}"
+              f" ms (reference)", flush=True)
+    if "two_processes_two_cards" in runs:
+        for a, b in zip(runs["two_processes_two_cards"],
+                        runs["two_processes_one_card"]):
+            for key in a:
+                if key.split("_")[1:2] in (["enter"], ["leave"]) and not (
+                        np.array_equal(pair_keys(a[key], n),
+                                       pair_keys(b[key], n))):
+                    raise AssertionError(f"multihost: the device route's "
+                                         f"{key} differs from the host "
+                                         f"route's")
     metrics["storm_enters"] = len(want[0][0])
-    print(f"multihost: {MULTIHOST_PROCS} processes x {MULTIHOST_LOCAL} "
-          f"shards, both backends, {MULTIHOST_TICKS} ticks equal to the "
-          f"single-device engine", flush=True)
-    slab = torch.tensor(data[0]["kernel_slab"], device=device)
+    host0 = runs["two_processes_one_card"][0]
+    slab = torch.tensor(host0["kernel_slab"], device=device)
     rows = p.grid_z // (MULTIHOST_PROCS * MULTIHOST_LOCAL)
     if tuple(slab.shape) != (p.space_slots, rows + 2, p.grid_x + 2, 8, 128):
         raise AssertionError(f"multihost: kept slab {tuple(slab.shape)}")
     kernel_rows = cell_checks(ek, slab, device)
+    launches = metrics["runs"]["two_processes_one_card"]["backends"][
+        "kernel"]["launches"]
     for row in kernel_rows:
-        row["launches"] = metrics["backends"]["kernel"]["launches"][
-            row["name"]]
+        row["launches"] = launches[row["name"]]
         row["slab"] = list(slab.shape)
-    del data, slab
+    del runs, host0, slab
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return metrics, kernel_rows
+
+
+def drive_multihost_1m(tn, ek, root: Path, device):
+    """multihost_1m (see MULTIHOST_1M_PROCS): four worker processes, one
+    card each, the device route over NCCL; every tick's union of events
+    equal to the single-device engine's on the card (run after the workers
+    left), the storm paged. Reports tick, gather and step times, each
+    card's peak memory and the kernel launches, and holds both mask forms
+    against their plain version at the slab rank 0 kept. Returns (None,
+    None), after a line saying so, on fewer than four cards."""
+    import shutil
+
+    cards = visible_cards()
+    if len(cards) < MULTIHOST_1M_PROCS:
+        print(f"multihost_1m: did not run: it needs {MULTIHOST_1M_PROCS} "
+              f"CUDA devices and this machine has {len(cards)}", flush=True)
+        return None, None
+    run_dir = root / "multihost_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    data = run_multihost_workers(root, run_dir, "multihost_1m",
+                                 MULTIHOST_1M_PROCS,
+                                 cards[:MULTIHOST_1M_PROCS], timeout=900)
+    workers_s = time.perf_counter() - t0
+    routes = [str(d["route"]) for d in data]
+    if routes != ["device"] * MULTIHOST_1M_PROCS:
+        raise AssertionError(f"multihost_1m: routes {routes}")
+    p = tn.NeighborParams(**STRIPS)
+    n = p.capacity
+    n_dev = MULTIHOST_1M_PROCS * MULTIHOST_1M_LOCAL
+    single = tn.NeighborEngine(p, backend="kernel", device=device)
+    single.reset()
+    want, labels = [], []
+    for label, w, _ in multihost_1m_trace(n):
+        out = single.step(*w)
+        check_pairs(out[0], n, f"multihost_1m {label} enters")
+        check_pairs(out[1], n, f"multihost_1m {label} leaves")
+        want.append(out)
+        labels.append(label)
+    del single
+    torch.cuda.empty_cache()
+    if len(want[0][0]) <= p.max_events // n_dev:
+        raise AssertionError("multihost_1m: the storm did not page")
+    hold_multihost_run(data, want, n, "kernel", "multihost_1m")
+    launches = sum(d["kernel_launches"] for d in data)
+    if any(v != len(want) * n_dev for v in launches):
+        raise AssertionError(f"multihost_1m: kernel launches {launches} "
+                             f"for {len(want)} ticks of {n_dev} shards")
+    metrics = {
+        "config": {**STRIPS, "active": STRIPS_ACTIVE,
+                   "processes": MULTIHOST_1M_PROCS,
+                   "local_shards": MULTIHOST_1M_LOCAL,
+                   "slab_rows": p.grid_z // n_dev, "backend": "kernel",
+                   "route": "device", "ticks": labels},
+        "cards": [str(d["card"]) for d in data],
+        **multihost_times(data, "kernel"),
+        "events_per_tick": [len(e) + len(l) for e, l, _ in want],
+        "peak_memory_allocated_bytes": [int(d["kernel_peak_bytes"][0])
+                                        for d in data],
+        "launches": dict(zip(ek.FORMS, map(int, launches))),
+        "workers_seconds": workers_s,
+    }
+    print(f"multihost_1m: {MULTIHOST_1M_PROCS} processes x "
+          f"{MULTIHOST_1M_LOCAL} shards on {MULTIHOST_1M_PROCS} cards, "
+          f"{len(want)} ticks equal to the single-device engine; tick p50 "
+          f"{metrics['tick_p50_ms']:.2f} ms, gather p50 "
+          f"{metrics['gather_p50_ms']:.3f} ms", flush=True)
+    slab = torch.tensor(data[0]["kernel_slab"], device=device)
+    rows = p.grid_z // n_dev
+    if tuple(slab.shape) != (p.space_slots, rows + 2, p.grid_x + 2, 8, 128):
+        raise AssertionError(f"multihost_1m: kept slab {tuple(slab.shape)}")
+    del data
+    kernel_rows = cell_checks(ek, slab, device)
+    for row in kernel_rows:
+        row["launches"] = metrics["launches"][row["name"]]
+        row["slab"] = list(slab.shape)
     shutil.rmtree(run_dir, ignore_errors=True)
     return metrics, kernel_rows
 
 
 def drive_multihost_cluster(root: Path, device_name: str):
     """multihost_cluster (see MH_CLUSTER_INI): the port's CLI starts the
-    deployment, both games join one group and run their AOI services on the
-    card in lockstep; MH_CLUSTER_BOTS strict bots for MH_CLUSTER_RUN_S with
-    a live reload at MH_CLUSTER_RELOAD_S; zero errors, each game's log
-    naming the card and the join twice, each game counting AOI steps in
-    both incarnations. The cluster is killed in a ``finally`` and no
-    process of it may be left."""
+    deployment, both games join one group and run their AOI services in
+    lockstep, each on its rank's card: with two or more cards on two cards
+    over the device route, on one card sharing it over the host route;
+    MH_CLUSTER_BOTS strict bots for MH_CLUSTER_RUN_S with a live reload at
+    MH_CLUSTER_RELOAD_S; zero errors, each game's log naming its card and
+    the join on that route twice, each game counting AOI steps in both
+    incarnations. The cluster is killed in a ``finally`` and no process of
+    it may be left."""
     import asyncio
     import shutil
 
@@ -1767,6 +2072,13 @@ def drive_multihost_cluster(root: Path, device_name: str):
         dir=run_dir, **ports))
     https = {"game1": ports["http1"], "game2": ports["http2"]}
     joined = "AOI multihost mesh joined: 2 processes"
+    n_cards = len(visible_cards())
+    route = "device" if n_cards >= 2 else "host"
+    if route == "host":
+        print("multihost_cluster: the device route did not run: it needs "
+              "two CUDA devices and this machine has 1; both games share "
+              "the card over the host route", flush=True)
+    on_route = f"{joined}, 2 global devices, gather route {route}"
 
     def steps():
         return {g: game_reading(port)["steps"].get("sharded_step", 0.0)
@@ -1801,16 +2113,23 @@ def drive_multihost_cluster(root: Path, device_name: str):
                                  f"{report['errors'][:5]}")
         done = {k: v["count"] for k, v in report["things"].items()}
         logs = {g: (run_dir / f"{g}.out.log").read_text() for g in https}
+        game_cards = {}
         for g, text in logs.items():
-            if text.count(joined) < 2:
+            if text.count(on_route) < 2:
                 raise AssertionError(f"multihost_cluster: {g} joined the "
-                                     f"group {text.count(joined)} times")
+                                     f"group on route {route} "
+                                     f"{text.count(on_route)} times")
             for k in (0, 1):
                 if ("AOI device: cuda" not in incarnation(text, k)
                         or device_name not in incarnation(text, k)):
                     raise AssertionError(f"multihost_cluster: {g}'s "
                                          f"incarnation {k} does not name "
                                          f"the card")
+                game_cards.setdefault(g, set()).update(re.findall(
+                    r"AOI device: (cuda:\d+)", incarnation(text, k)))
+        if route == "device" and len(set().union(*game_cards.values())) < 2:
+            raise AssertionError(f"multihost_cluster: the games did not "
+                                 f"take a card each: {game_cards}")
             if before[g] <= 0 or after[g] <= 0:
                 raise AssertionError(f"multihost_cluster: {g} counted no "
                                      f"AOI step: {before[g]}, {after[g]}")
@@ -1827,6 +2146,8 @@ def drive_multihost_cluster(root: Path, device_name: str):
             "errors": 0, "things": done, "timeouts": report["timeouts"],
             "reload_at_s": MH_CLUSTER_RELOAD_S, "reload_window_s": reload_s,
             "joins": {g: t.count(joined) for g, t in logs.items()},
+            "route": route,
+            "game_cards": {g: sorted(c) for g, c in game_cards.items()},
             "aoi_steps_first_incarnation": before,
             "aoi_steps_restored": after,
             "seconds": time.perf_counter() - t_all,
@@ -3320,7 +3641,8 @@ def sync_single(tn, root, device):
     sync_dispatches(SyncRecorder(root), eng, SYNC_WARM, world_now,
                     {"meta_dirty": False})
     rec = SyncRecorder(root)
-    sync_dispatches(rec, eng, SYNC_TICKS, world_now, {"meta_dirty": False})
+    sync_dispatches(rec, eng, SYNC_CHECK_TICKS, world_now,
+                    {"meta_dirty": False})
     active[rng.choice(n, n // 100, replace=False)] = False
     sync_dispatches(rec, eng, 1, world_now)
     edges = np.asarray(storm[0][:SYNC_EDGES], np.int32)
@@ -3336,14 +3658,14 @@ def sync_single(tn, root, device):
           "tiers": (1, len(edges), subj, wat, (len(SERVICE_TIERS), 0.5, 0.9),
                     True)}
     sync_dispatches(SyncRecorder(root), eng, 1, world_now, kw)
-    sync_dispatches(rec, eng, SYNC_TICKS, world_now, kw)
+    sync_dispatches(rec, eng, SYNC_CHECK_TICKS, world_now, kw)
     return rec
 
 
 def sync_service(em, tn, root, device, fuse, tiers):
     """``BatchAOIService._dispatch`` at service_10k's world (fused
     delivery; ``fuse``: [aoi] fuse_logic, ``tiers``: the [sync] cadences
-    or None), SYNC_TICKS recorded dispatches after SERVICE_WARM +
+    or None), SYNC_CHECK_TICKS recorded dispatches after SERVICE_WARM +
     SYNC_WARM unrecorded ticks. Returns the recorder."""
     rt, svc, ents, Walker, clock, _ = service_world(em, tn, device, fuse,
                                                     tiers=tiers)
@@ -3355,7 +3677,7 @@ def sync_service(em, tn, root, device, fuse, tiers):
             return dispatch()
 
     try:
-        for k in range(SERVICE_WARM + SYNC_WARM + SYNC_TICKS):
+        for k in range(SERVICE_WARM + SYNC_WARM + SYNC_CHECK_TICKS):
             if k == SERVICE_WARM + SYNC_WARM:
                 svc._dispatch = recorded
             service_tick(rt, svc, clock)
@@ -3369,7 +3691,7 @@ def sync_service(em, tn, root, device, fuse, tiers):
 def sync_sharded(engine_cls, tn, make_mesh, root, device):
     """An 8-way engine (the strip or the entity-sharded tier) at a cut
     strips_1m world (SYNC_CUT): the storm and SYNC_WARM steady ticks, then
-    SYNC_TICKS recorded steady dispatches. Returns the recorder."""
+    SYNC_CHECK_TICKS recorded steady dispatches. Returns the recorder."""
     p = tn.NeighborParams(**SYNC_CUT)
     n = p.capacity
     world_x = p.grid_x * p.cell_size
@@ -3393,10 +3715,30 @@ def sync_sharded(engine_cls, tn, make_mesh, root, device):
     sync_dispatches(SyncRecorder(root), eng, SYNC_WARM, world_now,
                     {"meta_dirty": False})
     rec = SyncRecorder(root)
-    sync_dispatches(rec, eng, SYNC_TICKS, world_now, {"meta_dirty": False})
+    sync_dispatches(rec, eng, SYNC_CHECK_TICKS, world_now,
+                    {"meta_dirty": False})
     del eng
     torch.cuda.empty_cache()
     return rec
+
+
+def sync_multihost(tn, make_mesh, root, device):
+    """The multi-process engine's device route over NCCL, in a one-process
+    group of this process, 8 local shards on the card and the slab kernel,
+    at the cut of ``sync_sharded``. Returns the recorder."""
+    from goworld_tpu_torch.parallel import multihost as mh
+
+    mh.init_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                      timeout_s=MULTIHOST_TIMEOUT_S)
+    try:
+        if mh.gather_route() != "device":
+            raise AssertionError(f"sync_check: one process took the "
+                                 f"{mh.gather_route()} route")
+        return sync_sharded(
+            lambda p, mesh: mh.MultiHostNeighborEngine(p, mesh, "kernel"),
+            tn, make_mesh, root, device)
+    finally:
+        mh.leave()
 
 
 def drive_sync_check(tn, tm, ts, make_mesh, root, device):
@@ -3408,7 +3750,8 @@ def drive_sync_check(tn, tm, ts, make_mesh, root, device):
     reports in the service's ``_dispatch`` with fused logic and
     service_10k's tiers, whose Event waits (the previous step's fused
     outputs and tier vector, which this dispatch's epoch and edge table
-    are built from) are printed; and (b) every site seen on any engine
+    are built from) are printed, and none in the multi-process engine's
+    ``step_async`` on the device route over NCCL; and (b) every site seen on any engine
     lies on one of R1's raw findings (``run_lint`` for R1 without a
     baseline, its line pragmas' findings included): static covers
     dynamic. Prints each engine's sites and
@@ -3431,6 +3774,8 @@ def drive_sync_check(tn, tm, ts, make_mesh, root, device):
                                  make_mesh, root, device),
         "entity_8": sync_sharded(tm.ShardedNeighborEngine, tn, make_mesh,
                                  root, device),
+        "multihost_device_route": sync_multihost(tn, make_mesh, root,
+                                                 device),
     }
     lint = core.run_lint(str(root), rules=("R1",))
     raw = lint.violations + lint.suppressed
@@ -3452,7 +3797,8 @@ def drive_sync_check(tn, tm, ts, make_mesh, root, device):
     for name, key, stack in uncovered:
         print(f"sync_check {name}: {key} is not in R1's raw findings; "
               f"stack {stack}", flush=True)
-    for name in ("single_device", "service_dispatch"):
+    for name in ("single_device", "service_dispatch",
+                 "multihost_device_route"):
         if recs[name].sites:
             raise AssertionError(f"sync_check: the main path's {name} "
                                  f"synced: {out['engines'][name]['sites']}")
@@ -3751,12 +4097,34 @@ def build_kernels(_build):
                 raise AssertionError(f"{fn} spills: {res}")
 
 
+def run_multi_card_phases(tn, ek, device):
+    """The multi-process phases, each printing its line; {phase: its mask
+    rows} of those that held the mask forms at a slab."""
+    root = Path(__file__).resolve().parent
+    multihost, rows = drive_multihost(tn, ek, root, device)
+    print(json.dumps({"multihost": multihost}), flush=True)
+    rows = {"multihost": rows}
+    mh_1m, mh_1m_rows = drive_multihost_1m(tn, ek, root, device)
+    if mh_1m is not None:
+        print(json.dumps({"multihost_1m": mh_1m}), flush=True)
+        rows["multihost_1m"] = mh_1m_rows
+    mh_cluster = drive_multihost_cluster(root, torch.cuda.get_device_name(0))
+    print(json.dumps({"multihost_cluster": mh_cluster}), flush=True)
+    return rows
+
+
+def device_entry() -> dict:
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--multihost-worker"]:  # drive_multihost's process
-        return multihost_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--multihost-worker"]:  # a multihost process
+        return multihost_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                sys.argv[4], sys.argv[5], sys.argv[6])
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) \
         if "--seed" in sys.argv else 0
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -3775,7 +4143,6 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
     build_kernels(_build)
-
     headline, kernels = drive_headline(tn, ek, device)
     print(json.dumps({"headline": headline}), flush=True)
     multispace = drive_multispace(tn, ek, device)
@@ -3854,13 +4221,10 @@ def main() -> int:
         }
         row["max_abs_err"] = max(row["max_abs_err"], crow["max_abs_err"])
     root = Path(__file__).resolve().parent
-    multihost, mh_rows = drive_multihost(tn, ek, root, device)
-    print(json.dumps({"multihost": multihost}), flush=True)
-    mh_cluster = drive_multihost_cluster(root, torch.cuda.get_device_name(0))
-    print(json.dumps({"multihost_cluster": mh_cluster}), flush=True)
-    for row, mrow in zip(kernels, mh_rows):  # the mask forms
-        row["multihost"] = slab_entry(mrow)
-        row["max_abs_err"] = max(row["max_abs_err"], mrow["max_abs_err"])
+    for phase, phase_rows in run_multi_card_phases(tn, ek, device).items():
+        for row, mrow in zip(kernels, phase_rows):  # the mask forms
+            row[phase] = slab_entry(mrow)
+            row["max_abs_err"] = max(row["max_abs_err"], mrow["max_abs_err"])
     unity, unity_rows = drive_unity(tn, ek, device, seed)
     print(json.dumps({"unity_demo": unity}), flush=True)
     for row, urow in zip(kernels, unity_rows):  # the mask forms
@@ -3874,11 +4238,7 @@ def main() -> int:
     drive_sync_check(tn, tm, ts, make_mesh, root, device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    print(json.dumps({"ok": True, "device": device_entry()}))
     return 0
 
 

@@ -310,6 +310,10 @@ class BatchAOIService:
 
             self._nprocs = mh.process_count()
             self._pid = mh.process_index()
+            if self.device.type == "cuda" and self.device.index is None:
+                # The card init_multihost gave this process's rank.
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
             n_dev = self._nprocs
             align = 8 * n_dev
             cap = ((params.capacity + align - 1) // align) * align

@@ -179,6 +179,7 @@ class GameService:
                 # blocks until every game is up (the CLI spawns the game
                 # batch before waiting on tags).
                 from goworld_tpu_torch.parallel.multihost import (
+                    gather_route,
                     init_multihost,
                     process_count,
                 )
@@ -191,16 +192,18 @@ class GameService:
                     "via %s", self.gameid, pid, nprocs,
                     self.cfg.aoi.multihost_coordinator,
                 )
+                # A game whose AOI runs on the CPU takes no card.
                 init_multihost(
-                    self.cfg.aoi.multihost_coordinator, nprocs, pid
+                    self.cfg.aoi.multihost_coordinator, nprocs, pid,
+                    cuda=rt.aoi_device != "cpu",
                 )
                 rt.aoi_multihost = True
                 # One shard a game process: the global shard count is the
-                # process count.
+                # process count. The cards decided the gather route.
                 gwlog.infof(
                     "game %d AOI multihost mesh joined: %d processes, "
-                    "%d global devices", self.gameid, process_count(),
-                    process_count(),
+                    "%d global devices, gather route %s", self.gameid,
+                    process_count(), process_count(), gather_route(),
                 )
             # Run the engine BEFORE the ready barrier admits clients: the
             # first dispatch otherwise pays the CUDA context, the kernel
@@ -382,6 +385,12 @@ class GameService:
                 tracing.set_flight_recorder(None)
             await self.cluster.stop()
             dispatchercluster.set_cluster(None)
+            if rt.aoi_multihost:
+                # Leave the AOI process group: over NCCL it is aborted, so
+                # a game that goes never waits on a gather its peer left.
+                from goworld_tpu_torch.parallel import multihost
+
+                multihost.leave()
         return self.exit_code or 0
 
     def _handshake(self, index: int, proxy) -> None:

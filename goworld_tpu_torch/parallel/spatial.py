@@ -45,6 +45,22 @@ Fused entity logic (``logic=``, the service's ``[aoi] fuse_logic``) runs
 each program on the strips' local rows, in the row-permuted layout, on the
 strip tick and on the fallback tick alike.
 
+Telemetry, under the JAX engine's family names (module scope here): the
+strip count and the structural per-tick payloads at construction
+(``aoi_shard_count``, ``aoi_halo_bytes_per_tick``,
+``aoi_allgather_equiv_bytes_per_tick``); each dispatch's strip populations
+(``aoi_shard_entities{shard}``) and migrations
+(``aoi_shard_migrations_total``); on a strip tick the structural halo
+bytes (``aoi_halo_bytes_total``) and each seam link's occupied band rows
+(``aoi_link_bytes_total{tier="halo"}``); on a fallback tick its reason
+(``aoi_shard_fallback_total{reason}``) and ``aoi_allgather_bytes_total``;
+adopted re-plans (``aoi_shard_replans_total``) and seam-free fast ticks
+(``aoi_spatial_fast_ticks_total``). A traced dispatch records a
+``tick.halo`` span over its host layout with its ``migrations`` and
+``mode``. ``aoi_strip_ring_distance{order}`` is registered and never set:
+the JAX engine sets it only for devices with coords, and a
+``torch.device`` has none, as a GPU rig's JAX device has none.
+
 Each step program counts its own launches, ``jit_launches_total{fn}``
 with ``fn`` ``spatial_step_kernel`` (``_spatial_step_pallas_impl``),
 ``spatial_step_reference`` (``_spatial_step_impl``) or, on a fallback tick,
@@ -53,15 +69,18 @@ appended when entity logic rides it, as the JAX module's ``SentinelJit``
 wrappers count calls of the programs themselves: a dispatch that ran two
 programs counts two. The paging drains (``_spatial_drain_bits``,
 ``_spatial_drain``) are not steps and stay uncounted. Not ported: the
-fallback prewarm thread (nothing compiles lazily here), the ``placement``
-option (a ``torch.device`` has no coords) and the JAX engine's other
-telemetry counters.
+fallback prewarm thread (nothing compiles lazily here) and the
+``placement`` option (a ``torch.device`` has no coords).
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+
+from goworld_tpu_torch import telemetry
 
 from goworld_tpu_torch.ops.event_kernel import event_drain, event_mask
 from goworld_tpu_torch.ops.neighbor import (
@@ -84,6 +103,9 @@ from goworld_tpu_torch.ops.neighbor import (
     sorted_ranks_by,
 )
 from goworld_tpu_torch.parallel.mesh import (
+    _M_ALLGATHER_EQUIV,
+    _M_ALLGATHER_TOTAL,
+    _M_LINK_BYTES,
     ShardedPendingStep,
     _fused_rows,
     _sharded_drain,
@@ -92,9 +114,60 @@ from goworld_tpu_torch.parallel.mesh import (
     all_gather,
     shard_rows,
 )
-from goworld_tpu_torch.telemetry import sentinel
+from goworld_tpu_torch.telemetry import sentinel, tracing
 
 _W = 9 * LANES // _PACK  # words per packed mask row
+
+# The strip tier's families (the JAX engine's names, help texts and
+# labels; see the module docstring).
+_M_FAST_TICKS = telemetry.counter(
+    "aoi_spatial_fast_ticks_total",
+    "Spatial-engine ticks served by the seam-free single-pass fast path "
+    "(replicated displacement guard held; leave diff rode the current "
+    "grid).",
+)
+_M_RING_DISTANCE = telemetry.gauge(
+    "aoi_strip_ring_distance",
+    "Sum of interconnect (manhattan coord) distances between ring-adjacent "
+    "strip devices, per placement order.",
+    ("order",),
+)
+_M_SHARD_COUNT = telemetry.gauge(
+    "aoi_shard_count",
+    "Device shards of the spatially sharded AOI engine.",
+)
+_M_SHARD_ENTITIES = telemetry.gauge(
+    "aoi_shard_entities",
+    "Active entity rows owned by each AOI grid-strip shard at the last "
+    "dispatch.",
+    ("shard",),
+)
+_M_HALO_BYTES = telemetry.counter(
+    "aoi_halo_bytes_total",
+    "Bytes ppermuted between shards for AOI halo exchange (structural: "
+    "halo_cap rows x 2 directions x D shards per spatial tick).",
+)
+_M_HALO_PER_TICK = telemetry.gauge(
+    "aoi_halo_bytes_per_tick",
+    "Structural ppermute payload of one spatial tick (halo_cap rows x 2 "
+    "directions x D shards).",
+)
+_M_MIGRATIONS = telemetry.counter(
+    "aoi_shard_migrations_total",
+    "Entities reassigned to a different AOI grid-strip shard (hysteresis: "
+    "one full cell past the seam).",
+)
+_M_FALLBACK = telemetry.counter(
+    "aoi_shard_fallback_total",
+    "Ticks the spatial engine ran the exact all-gather program instead of "
+    "the halo exchange.",
+    ("reason",),
+)
+_M_REPLANS = telemetry.counter(
+    "aoi_shard_replans_total",
+    "Density-driven strip re-plans adopted (equal-population boundary "
+    "moves).",
+)
 
 # Halo feature-block bytes per exchanged row: f32 (px, pz, x, z) + i32
 # (pspc, spc, slot) + bool (pact, act). Radius does NOT travel: the pair
@@ -786,7 +859,8 @@ class SpatialShardedNeighborEngine:
     guard held on the last collected tick), ``shard_population`` (active
     rows per strip at the last dispatch), ``halo_bytes_per_tick`` and
     ``allgather_bytes_per_tick`` (structural payloads), and the counters
-    ``total_fast_ticks``, ``total_migrations``, ``total_fallbacks``.
+    ``total_fast_ticks``, ``total_migrations``, ``total_fallbacks``,
+    ``total_replans``, each also on ``/metrics`` (the module docstring).
 
     ``backend``: "kernel" ("auto" means "kernel"), the strip-local event
     kernel slab, or "reference", the strip-local candidate-id matrices.
@@ -898,6 +972,17 @@ class SpatialShardedNeighborEngine:
         self.total_migrations = 0
         self.total_fallbacks = 0
         self.total_replans = 0
+        _M_SHARD_COUNT.set(n_dev)
+        _M_HALO_PER_TICK.set(self.halo_bytes_per_tick)
+        _M_ALLGATHER_EQUIV.set(self.allgather_bytes_per_tick)
+        # Each directed seam link's halo child: the wire moves the
+        # structural halo_cap envelope, these count the bands' OCCUPIED
+        # rows (_build_bands records them).
+        self._halo_link_children = tuple(
+            (_M_LINK_BYTES.labels("halo", f"{s}->{(s - 1) % n_dev}"),
+             _M_LINK_BYTES.labels("halo", f"{s}->{(s + 1) % n_dev}"))
+            for s in range(n_dev))
+        self._last_band_counts: np.ndarray | None = None
 
     # --- host-side shard layout ---------------------------------------------
 
@@ -987,6 +1072,7 @@ class SpatialShardedNeighborEngine:
         self.boundaries = new
         self._rebuild_col_owner()
         self.total_replans += 1
+        _M_REPLANS.inc()
         return True
 
     def _rebuild_perm(self, placed: np.ndarray) -> None:
@@ -1056,6 +1142,8 @@ class SpatialShardedNeighborEngine:
         cur_pos, cur_act, cur_spc, _ = cur
         cx = bins_reference(p, cur_pos, cur_spc)[0]
         self._dispatches += 1
+        halo_span = tracing.child_scope("tick.halo")
+        t0 = time.monotonic()
 
         perm_rebuilt = False
         migrations = 0
@@ -1129,7 +1217,18 @@ class SpatialShardedNeighborEngine:
             )
             if overflow:
                 fallback_reason = "halo_overflow"
-        self.total_migrations += migrations
+        if migrations:
+            self.total_migrations += migrations
+            _M_MIGRATIONS.inc(migrations)
+        for d in range(self.n_devices):
+            _M_SHARD_ENTITIES.labels(str(d)).set(int(counts[d]))  # gwlint: ok R1 numpy strip populations; host arithmetic
+        if halo_span is not None:
+            halo_span.args["migrations"] = migrations
+            halo_span.args["mode"] = fallback_reason or "spatial"
+            tracing.record_span(
+                halo_span.name, t0, time.monotonic() - t0,
+                halo_span.ctx.trace_id, halo_span.ctx.span_id,
+                halo_span.parent_id, halo_span.args)
 
         put = self._put
         perm = self.perm
@@ -1216,6 +1315,8 @@ class SpatialShardedNeighborEngine:
                     *cur_dev)
             self.last_mode = f"fallback:{fallback_reason}"
             self.total_fallbacks += 1
+            _M_FALLBACK.labels(fallback_reason).inc()
+            _M_ALLGATHER_TOTAL.inc(self.allgather_bytes_per_tick)
             pending = _FallbackPendingStep(
                 self, ("fallback", enter_ids), ("fallback", leave_ids),
                 outs, perm.copy(),
@@ -1223,6 +1324,8 @@ class SpatialShardedNeighborEngine:
             # The all-gather program's cursors are flat matrix indices.
             pending.rank_paging = False
 
+        if fallback_reason is None:
+            self._note_halo()
         if fused_out is not None:
             _FUSED_VARIANTS.add((p, "strips", self.backend, programs))
             # Outputs are in ROW space: the perm SNAPSHOT maps row→slot at
@@ -1295,6 +1398,17 @@ class SpatialShardedNeighborEngine:
         self.last_fast_tick = bool(flags & 1)
         if flags & 1:
             self.total_fast_ticks += 1
+            _M_FAST_TICKS.inc()
+
+    def _note_halo(self) -> None:
+        """A strip tick's halo bytes: the structural payload, and each
+        seam link's occupied band rows."""
+        _M_HALO_BYTES.inc(self.halo_bytes_per_tick)
+        for s, (lo_n, hi_n) in enumerate(self._last_band_counts):
+            if lo_n:
+                self._halo_link_children[s][0].inc(int(lo_n) * HALO_ROW_BYTES)  # gwlint: ok R1 numpy band counts; host arithmetic
+            if hi_n:
+                self._halo_link_children[s][1].inc(int(hi_n) * HALO_ROW_BYTES)  # gwlint: ok R1 numpy band counts; host arithmetic
 
     def _build_bands(self, cx, cur_act, prev_act):
         """Per-strip send-index arrays for both seams (flattened
@@ -1324,13 +1438,18 @@ class SpatialShardedNeighborEngine:
             high &= ~low
         send_lo = np.full(d * h, self.chunk, np.int32)
         send_hi = np.full(d * h, self.chunk, np.int32)
+        counts = np.zeros((d, 2), np.int64)
         for s in range(d):
-            for mask, buf in ((low, send_lo), (high, send_hi)):
+            for i, (mask, buf) in enumerate(((low, send_lo),
+                                             (high, send_hi))):
                 slots = rel[mask & (sh == s)]
                 if len(slots) > h:
+                    self._last_band_counts = None
                     return None, None, True
                 rows = np.sort(self.row_of[slots] - s * self.chunk)
                 buf[s * h:s * h + len(rows)] = rows
+                counts[s, i] = len(rows)
+        self._last_band_counts = counts
         return send_lo, send_hi, False
 
     def _page(self, ctx: tuple, deficit: np.ndarray, starts: np.ndarray):

@@ -1,22 +1,30 @@
 """The port's multi-process AOI tier on the CPU: two real OS processes.
 
-Each process joins one Gloo group (``parallel.multihost.init_multihost``)
-with 4 CPU shards, so the global engine has 8 shards, and steps
+Each process joins one group (``parallel.multihost.init_multihost``) with
+4 CPU shards, so the global engine has 8 shards, and steps
 ``MultiHostNeighborEngine`` with only ITS entity rows over the trace of
 ``tests/test_multihost.py`` (512 slots, ``max_events`` 256, so the first
-tick's storm pages on every shard), on both backends. The union of the two
-processes' events must equal the JAX single-device engine's stream; under
-``"reference"`` each process must get exactly its own rows' events. The
-same pair of processes then plays the batched service's flush alignment
+tick's storm pages on every shard), on both backends and on both gather
+routes: the host route (the card identities stubbed to one shared card)
+and the device route (stubbed to two distinct cards; the rows on the CPU,
+so its group is Gloo too), with ``meta_dirty`` False after the storm.
+The union of the two processes' events must equal the JAX single-device
+engine's stream on every tick and route; under
+``"reference"`` each process must get exactly its own rows' events, and
+the two routes give each process the same events. The same pair of
+processes then plays the batched service's flush alignment on each route
 (one process a dispatch ahead; both collect the same final step) and a
 dead peer (the alignment gives up within its deadline).
 
 This file is also the worker: ``python tests/test_torch_multihost.py rank
-nprocs coordinator outfile`` (under ``if __name__ == "__main__"``).
+nprocs coordinators outfile`` (under ``if __name__ == "__main__"``; one
+coordinator per route, comma-separated).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import os
 import socket
 import subprocess
@@ -29,6 +37,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SERVER = "goworld_tpu_torch.examples.test_game"
 BACKENDS = ("reference", "kernel")
+# Each route's stubbed card identity of a rank.
+ROUTES = {"host": lambda rank: "GPU-shared",
+          "device": lambda rank: f"GPU-{rank}"}
 TICKS = 3
 # The dead-peer case's flush deadline, seconds.
 DEAD_PEER_DEADLINE = 1.0
@@ -64,79 +75,90 @@ def _to_sets(pairs, n=512):
     return sets
 
 
-def _worker(rank: int, nprocs: int, coord: str, outfile: str) -> int:
+def _worker(rank: int, nprocs: int, coords: str, outfile: str) -> int:
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, REPO)
     from goworld_tpu_torch.entity.aoi.batched import BatchAOIService
     from goworld_tpu_torch.ops.neighbor import NeighborParams
+    from goworld_tpu_torch.parallel import multihost as mh
     from goworld_tpu_torch.parallel.mesh import make_mesh
-    from goworld_tpu_torch.parallel.multihost import (
-        MultiHostNeighborEngine,
-        init_multihost,
-    )
 
     torch.set_num_threads(1)
-    init_multihost(coord, nprocs, rank, timeout_s=60.0)
     p = NeighborParams(capacity=512, cell_size=100.0, grid_x=16, grid_z=16,
                        space_slots=4, cell_capacity=64, max_events=256)
     dump = {}
-    for backend in BACKENDS:
-        eng = MultiHostNeighborEngine(p, make_mesh(4, "cpu"),
-                                      backend=backend)
-        eng.reset()
-        rng, pos, active, space, radius = _trace(p.capacity)
-        lo, lc = eng.local_lo, eng.local_capacity
-        for tick in range(TICKS):
-            pend = eng.step_async(pos[lo:lo + lc], active[lo:lo + lc],
-                                  space[lo:lo + lc], radius[lo:lo + lc])
-            e, l, dropped = pend.collect()
-            dump[f"{backend}_enter_{tick}"] = e
-            dump[f"{backend}_leave_{tick}"] = l
-            dump[f"{backend}_dropped_{tick}"] = np.array([dropped])
-            assert pend.gather_ms is not None
-            pos = _drift(rng, pos)
-        dump["local_lo"] = np.array([lo])
-        dump["local_capacity"] = np.array([lc])
+    for route, coord in zip(ROUTES, coords.split(",")):
+        if route != "host":
+            dist.barrier()
+            mh.leave()
+        mh._take_card = ROUTES[route]
+        mh.init_multihost(coord, nprocs, rank, timeout_s=60.0)
+        dump[f"{route}_route"] = np.array(mh.gather_route())
+        for backend in BACKENDS:
+            eng = mh.MultiHostNeighborEngine(p, make_mesh(4, "cpu"),
+                                             backend=backend)
+            assert eng.gather_route == route
+            eng.reset()
+            rng, pos, active, space, radius = _trace(p.capacity)
+            lo, lc = eng.local_lo, eng.local_capacity
+            for tick in range(TICKS):
+                pend = eng.step_async(
+                    pos[lo:lo + lc], active[lo:lo + lc], space[lo:lo + lc],
+                    radius[lo:lo + lc], meta_dirty=tick == 0)
+                e, l, dropped = pend.collect()
+                key = f"{route}_{backend}"
+                dump[f"{key}_enter_{tick}"] = e
+                dump[f"{key}_leave_{tick}"] = l
+                dump[f"{key}_dropped_{tick}"] = np.array([dropped])
+                assert pend.gather_ms is not None
+                pos = _drift(rng, pos)
+            dump["local_lo"] = np.array([lo])
+            dump["local_capacity"] = np.array([lc])
+        _align_flush(mh, BatchAOIService, p, rank, route, dump)
+    dist.barrier()
+    mh.leave()
+    np.savez(outfile, **dump)
+    print(f"worker {rank} ok", flush=True)
+    return 0
 
-    # The flush alignment: rank 0 dispatches once more than rank 1 (its
-    # gather waits for rank 1), then both flush.
-    svc = BatchAOIService(p, multihost=True, device="cpu")
+
+def _align_flush(mh, service_cls, p, rank, route, dump):
+    """The flush alignment on ``route``: rank 0 dispatches once more than
+    rank 1 (its gather waits for rank 1), then both flush; then a dead
+    peer, rank 1 never publishing its count for the next round."""
+    svc = service_cls(p, multihost=True, device="cpu")
+    assert svc.engine.gather_route == route
     svc.warmup()
     svc.tick()
     svc.tick()
     if rank == 0:
         svc._pending[0].wait_device()  # rank 1 dispatched #2 as well
         assert svc.tick(wait=False) is not None
-    dump["count_before_flush"] = np.array([svc._dispatch_count])
+    dump[f"{route}_count_before_flush"] = np.array([svc._dispatch_count])
     svc.flush()
-    dump["count_after_flush"] = np.array([svc._dispatch_count])
-    dump["pending_after_flush"] = np.array([svc._pending is not None])
-
-    # A dead peer: rank 1 never publishes its count for the next round.
+    dump[f"{route}_count_after_flush"] = np.array([svc._dispatch_count])
+    dump[f"{route}_pending_after_flush"] = np.array(
+        [svc._pending is not None])
     if rank == 0:
         svc.MULTIHOST_FLUSH_DEADLINE = DEAD_PEER_DEADLINE
         t0 = time.monotonic()
-        dump["dead_peer_aligned"] = np.array(
+        dump[f"{route}_dead_peer_aligned"] = np.array(
             [svc._align_multihost_for_flush()])
-        dump["dead_peer_seconds"] = np.array([time.monotonic() - t0])
-    dist.barrier()
-    dist.destroy_process_group()
-    np.savez(outfile, **dump)
-    print(f"worker {rank} ok", flush=True)
-    return 0
+        dump[f"{route}_dead_peer_seconds"] = np.array(
+            [time.monotonic() - t0])
 
 
 def test_two_processes_match_single_device_and_align_flush(tmp_path):
     from goworld_tpu.ops.neighbor import NeighborEngine, NeighborParams
 
-    coord = f"127.0.0.1:{_free_port()}"
+    coords = ",".join(f"127.0.0.1:{_free_port()}" for _ in ROUTES)
     outs = [str(tmp_path / f"mh_out_{i}.npz") for i in range(2)]
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     procs = [
         subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(i), "2", coord,
+            [sys.executable, os.path.abspath(__file__), str(i), "2", coords,
              outs[i]],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)
@@ -166,36 +188,49 @@ def test_two_processes_match_single_device_and_align_flush(tmp_path):
     spans = sorted((int(d["local_lo"][0]), int(d["local_capacity"][0]))
                    for d in data)
     assert spans == [(0, 256), (256, 256)]
-    for backend in BACKENDS:
+    for d in data:
+        for route in ROUTES:
+            assert str(d[f"{route}_route"]) == route
+    for route, backend in itertools.product(ROUTES, BACKENDS):
         for tick, (want_e, want_l, want_d) in enumerate(want):
-            union_e = np.concatenate([d[f"{backend}_enter_{tick}"]
+            key = f"{route}_{backend}"
+            union_e = np.concatenate([d[f"{key}_enter_{tick}"]
                                       for d in data])
-            union_l = np.concatenate([d[f"{backend}_leave_{tick}"]
+            union_l = np.concatenate([d[f"{key}_leave_{tick}"]
                                       for d in data])
             # Exact counts first: sets alone would hide a duplicate from a
             # broken paging resume.
-            assert len(union_e) == len(want_e), (backend, tick)
-            assert len(union_l) == len(want_l), (backend, tick)
-            assert _to_sets(union_e) == _to_sets(want_e), (backend, tick)
-            assert _to_sets(union_l) == _to_sets(want_l), (backend, tick)
+            assert len(union_e) == len(want_e), (key, tick)
+            assert len(union_l) == len(want_l), (key, tick)
+            assert _to_sets(union_e) == _to_sets(want_e), (key, tick)
+            assert _to_sets(union_l) == _to_sets(want_l), (key, tick)
             for d in data:
-                assert int(d[f"{backend}_dropped_{tick}"][0]) == want_d
-                if backend == "reference":
-                    lo = int(d["local_lo"][0])
-                    lc = int(d["local_capacity"][0])
-                    for side in ("enter", "leave"):
-                        ent = d[f"{backend}_{side}_{tick}"][:, 0]
+                assert int(d[f"{key}_dropped_{tick}"][0]) == want_d
+                for side in ("enter", "leave"):
+                    # Both routes give each process the same events.
+                    got = d[f"{key}_{side}_{tick}"]
+                    host = d[f"host_{backend}_{side}_{tick}"]
+                    assert _to_sets(got) == _to_sets(host), (key, tick)
+                    if backend == "reference":
+                        lo = int(d["local_lo"][0])
+                        lc = int(d["local_capacity"][0])
+                        ent = got[:, 0]
                         assert ((ent >= lo) & (ent < lo + lc)).all()
             if tick == 0:
                 assert len(union_e) > 8 * 32  # every shard's budget paged
-    # The flush: rank 0 a dispatch ahead, both end on the same step with
-    # nothing in flight.
-    assert [int(d["count_before_flush"][0]) for d in data] == [3, 2]
-    assert [int(d["count_after_flush"][0]) for d in data] == [3, 3]
-    assert not any(bool(d["pending_after_flush"][0]) for d in data)
-    dead = data[0]
-    assert not bool(dead["dead_peer_aligned"][0])
-    assert float(dead["dead_peer_seconds"][0]) < DEAD_PEER_DEADLINE + 2.0
+    # The flush on each route: rank 0 a dispatch ahead, both end on the
+    # same step with nothing in flight; then the dead peer.
+    for route in ROUTES:
+        assert [int(d[f"{route}_count_before_flush"][0])
+                for d in data] == [3, 2], route
+        assert [int(d[f"{route}_count_after_flush"][0])
+                for d in data] == [3, 3], route
+        assert not any(bool(d[f"{route}_pending_after_flush"][0])
+                       for d in data), route
+        dead = data[0]
+        assert not bool(dead[f"{route}_dead_peer_aligned"][0]), route
+        assert (float(dead[f"{route}_dead_peer_seconds"][0])
+                < DEAD_PEER_DEADLINE + 2.0), route
 
 
 def test_failed_gather_is_never_ready():
@@ -260,6 +295,153 @@ def test_failed_step_launch_raises_its_own_error(monkeypatch):
     finally:
         dist.destroy_process_group()
         multihost._STORE = None
+
+
+def test_route_selection():
+    """The cards decide the gather route: processes on distinct cards (or
+    on none) take the device route, two on one card the host route, one
+    process the device route; ``init_multihost`` takes it from the cards
+    its processes report through the store."""
+    from goworld_tpu_torch.parallel import multihost
+
+    assert multihost.choose_route(["GPU-a", "GPU-b"]) == "device"
+    assert multihost.choose_route(["GPU-a", "GPU-a"]) == "host"
+    assert multihost.choose_route(["GPU-a", "GPU-b", "GPU-a"]) == "host"
+    assert multihost.choose_route(["GPU-a"]) == "device"
+    assert multihost.choose_route(["", ""]) == "device"
+
+
+def test_one_process_takes_the_device_route(monkeypatch):
+    import torch.distributed as dist
+
+    from goworld_tpu_torch.ops.neighbor import NeighborParams
+    from goworld_tpu_torch.parallel import multihost
+    from goworld_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(multihost, "_take_card", lambda rank: "GPU-0")
+    multihost.init_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             timeout_s=30.0)
+    try:
+        assert multihost.gather_route() == "device"
+        assert dist.get_backend() == "gloo"  # no CUDA here: no NCCL
+        p = NeighborParams(capacity=512, cell_size=100.0, grid_x=16,
+                           grid_z=16, space_slots=4, cell_capacity=64,
+                           max_events=256)
+        eng = multihost.MultiHostNeighborEngine(p, make_mesh(2, "cpu"))
+        assert eng.gather_route == "device"
+    finally:
+        multihost.leave()
+    assert multihost.store() is None and not dist.is_initialized()
+
+
+def test_meta_dirty_false_uploads_positions_only():
+    """On the device route, ``meta_dirty=False`` uploads this process's
+    positions only and gathers the metadata it kept from its previous
+    tick: the same events as the JAX single-device engine given the same
+    flags, also on a tick whose active column changed but was not marked
+    dirty (both engines then step the previous active)."""
+    import torch
+
+    from goworld_tpu.ops.neighbor import NeighborEngine, NeighborParams
+    from goworld_tpu_torch.ops import neighbor as tn
+    from goworld_tpu_torch.parallel import multihost
+    from goworld_tpu_torch.parallel.mesh import make_mesh
+
+    p = NeighborParams(capacity=512, cell_size=100.0, grid_x=16, grid_z=16,
+                       space_slots=4, cell_capacity=64, max_events=4096)
+    ref = NeighborEngine(p, backend="jnp")
+    ref.reset()
+    multihost.init_multihost(f"127.0.0.1:{_free_port()}", 1, 0,
+                             timeout_s=30.0)
+    try:
+        eng = multihost.MultiHostNeighborEngine(
+            tn.NeighborParams(**dataclasses.asdict(p)), make_mesh(2, "cpu"),
+            backend="kernel")
+        assert eng.gather_route == "device"
+        eng.reset()
+        rng, pos, active, space, radius = _trace(p.capacity)
+        first_meta = None
+        for tick in range(4):
+            meta_dirty = tick == 0
+            if tick == 3:
+                active = active.copy()
+                active[:50] = False  # not marked dirty: not uploaded
+            want = ref.step_async(pos, active, space, radius,
+                                  meta_dirty=meta_dirty).collect()
+            got = eng.step_async(pos, active, space, radius,
+                                 meta_dirty=meta_dirty).collect()
+            for k in (0, 1):
+                assert len(got[k]) == len(want[k]), (tick, k)
+                assert _to_sets(got[k]) == _to_sets(want[k]), (tick, k)
+            assert got[2] == want[2]
+            local = eng._local
+            assert torch.equal(local[:, 0:2].view(torch.float32),
+                               torch.from_numpy(pos))
+            if tick == 0:
+                first_meta = local[:, 2:].clone()
+            assert torch.equal(local[:, 2:], first_meta), tick
+            pos = _drift(rng, pos)
+    finally:
+        multihost.leave()
+
+
+def _device_pending(work):
+    """A device-route pending step over ``work``, its rows on the CPU."""
+    import torch
+
+    from goworld_tpu_torch.parallel.multihost import MultiHostPendingStep
+
+    return MultiHostPendingStep(None, work, torch.empty((0, 5)))
+
+
+def test_failed_device_gather_is_never_ready(monkeypatch):
+    """The device route's failed gather is never ready and ``collect``
+    raises it: over Gloo (the rows on the CPU) the gather's wait raises;
+    over NCCL the gather reports its failure (the watchdog aborted it at
+    the group's timeout), or never completes and ``collect`` gives up at
+    that timeout."""
+    from goworld_tpu_torch.parallel import multihost
+
+    class FailedWork:
+        def is_completed(self):
+            return True
+
+        def wait(self):
+            raise RuntimeError("connection closed by peer")
+
+    pending = _device_pending(FailedWork())
+    assert not pending.is_ready()
+    assert not pending.is_ready()
+    with pytest.raises(RuntimeError, match="closed by peer"):
+        pending.collect()
+
+    class AbortedWork(FailedWork):
+        def wait(self, timeout=None):
+            # Over NCCL a wait only orders the stream; with a timeout it
+            # also raises the error of a completed work.
+            if timeout is not None:
+                raise RuntimeError("Watchdog caught collective operation "
+                                   "timeout")
+
+    pending = _device_pending(AbortedWork())
+    pending._nccl = True
+    assert not pending.is_ready()
+    assert not pending.is_ready()
+    with pytest.raises(RuntimeError, match="gather failed.*Watchdog"):
+        pending.collect()
+    with pytest.raises(RuntimeError, match="gather failed"):
+        pending.wait_device()
+
+    class PendingWork(AbortedWork):
+        def is_completed(self):
+            return False
+
+    monkeypatch.setattr(multihost, "_TIMEOUT_S", 0.2)
+    pending = _device_pending(PendingWork())
+    pending._nccl = True
+    assert not pending.is_ready()
+    with pytest.raises(RuntimeError, match="did not complete within"):
+        pending.collect()
 
 
 MH_CLUSTER_INI = """\

@@ -622,3 +622,170 @@ def test_freeze_data_holds_no_tensor_on_cpu():
     assert no_tensor_in(data)
     assert len(data["entities"]) == 200
     json.dumps(data)
+
+
+# --- the multi-process tier's device route over NCCL -------------------------
+
+
+def cards_or_skip(k: int) -> list[str]:
+    from chip_smoke import visible_cards
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cards = visible_cards()
+    if len(cards) < k:
+        pytest.skip(f"needs {k} CUDA devices, this machine has {len(cards)}")
+    return cards
+
+
+@pytest.mark.cuda
+def test_cuda_multihost_device_route_matches_single_device_engine(tmp_path):
+    """Two processes on two cards take the device route: each uploads its
+    own rows and the gather runs on the cards over NCCL; on both backends
+    the union of their events equals the single-device engine's on every
+    tick (chip_smoke's multihost world, the storm paged)."""
+    import chip_smoke as cs
+
+    cards = cards_or_skip(2)
+    data = cs.run_multihost_workers(ROOT, tmp_path, "multihost", 2,
+                                    cards[:2])
+    assert [str(d["route"]) for d in data] == ["device", "device"]
+    p = tn.NeighborParams(**cs.MULTIHOST)
+    single = tn.NeighborEngine(p, backend="kernel", device="cuda")
+    single.reset()
+    want = [single.step(*w) for _, w, _ in cs.multihost_trace(p.capacity)]
+    for backend in ("reference", "kernel"):
+        cs.hold_multihost_run(data, want, p.capacity, backend, "two cards")
+
+
+def run_nccl_workers(tmp_path, mode, cards, extra_env=None, timeout=180):
+    """Two processes of this file's worker (``mode``), seeing ``cards``;
+    their (return code, output), rank order."""
+    import os
+
+    from chip_smoke import free_port
+
+    coord = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               CUDA_VISIBLE_DEVICES=",".join(cards),
+               TORCH_NCCL_DUMP_ON_TIMEOUT="0", **(extra_env or {}))
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, mode, str(rank), coord],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        return [(proc.wait(timeout=timeout), proc.stdout.read())
+                for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_error_raises_and_does_not_drop_to_gloo(tmp_path):
+    """Two processes on ONE card that report distinct cards take the
+    device route; NCCL refuses two ranks on one GPU, and that error is
+    raised from the first step: nothing carries on over Gloo."""
+    cards = cards_or_skip(1)
+    for rc, log in run_nccl_workers(tmp_path, "nccl_duplicate", cards[:1]):
+        print(f"rc {rc}:\n{log[-1500:]}")
+        assert rc == 0, log[-3000:]
+        assert "route device: raised" in log, log[-3000:]
+        assert "NCCL" in log or "nccl" in log, log[-3000:]
+
+
+# Seconds of the peer-left case's group timeout.
+PEER_LEFT_TIMEOUT_S = 10.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("handling", ["2", "3"])
+def test_cuda_gather_a_peer_left(tmp_path, handling):
+    """Rank 0 dispatches a gather rank 1 never joins: rank 1 leaves (an
+    abort) and exits at once. Rank 0's step is never ready, and its
+    ``collect`` raises at the group's timeout. Under
+    TORCH_NCCL_ASYNC_ERROR_HANDLING=2, what ``init_multihost`` sets unless
+    the environment says otherwise, rank 0 then leaves the group (an
+    abort) and exits 0. Under 3, torch's default, NCCL's watchdog thread
+    ends the process by a signal after the timeout (SIGABRT or SIGSEGV),
+    whatever it does meanwhile."""
+    cards = cards_or_skip(2)
+    (rc0, log0), (rc1, log1) = run_nccl_workers(
+        tmp_path, "peer_left", cards[:2],
+        {"TORCH_NCCL_ASYNC_ERROR_HANDLING": handling})
+    print(f"handling {handling}: rank 0 rc {rc0}:\n{log0[-2000:]}")
+    assert rc1 == 0 and "rank 1 left" in log1, log1[-3000:]
+    assert "never ready" in log0, log0[-3000:]
+    assert "collect raised" in log0, log0[-3000:]
+    if handling == "2":
+        assert rc0 == 0 and "left the group" in log0, log0[-3000:]
+    else:
+        assert rc0 < 0, log0[-3000:]
+
+
+def nccl_worker(mode: str, rank: int, coord: str) -> int:
+    """The two-process cases above: ``nccl_duplicate`` (both ranks on one
+    card, reported as distinct cards) and ``peer_left`` (rank 1 leaves
+    after one tick, rank 0 dispatches another)."""
+    import time
+
+    from goworld_tpu_torch.parallel import multihost as mh
+
+    if mode == "nccl_duplicate":
+        def take_card(r):
+            torch.cuda.set_device(0)
+            return f"GPU-reported-{r}"
+        mh._take_card = take_card
+    timeout = PEER_LEFT_TIMEOUT_S if mode == "peer_left" else 60.0
+    mh.init_multihost(coord, 2, rank, timeout_s=timeout)
+    p = tn.NeighborParams(capacity=4096, cell_size=100.0, grid_x=16,
+                          grid_z=16, space_slots=1, cell_capacity=64,
+                          max_events=4096)
+    eng = mh.MultiHostNeighborEngine(p, make_mesh(1, "cuda"))
+    eng.reset()
+    rng = np.random.default_rng(rank)
+    lc = eng.local_capacity
+    world = (rng.uniform(0, 1600, (lc, 2)).astype(np.float32),
+             np.ones(lc, bool), np.zeros(lc, np.int32),
+             np.full(lc, 100.0, np.float32))
+    if mode == "nccl_duplicate":
+        try:
+            eng.step(*world)
+        except Exception as exc:  # the NCCL error, reported
+            print(f"rank {rank} route {mh.gather_route()}: raised "
+                  f"{type(exc).__name__}: {exc}", flush=True)
+            mh.leave()
+            return 0
+        print(f"rank {rank}: the step ran", flush=True)
+        return 1
+    eng.step(*world)
+    if rank == 1:
+        mh.leave()
+        print("rank 1 left", flush=True)
+        return 0
+    pend = eng.step_async(*world)
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < PEER_LEFT_TIMEOUT_S + 10.0:
+        if pend.is_ready():
+            print("rank 0: the step became ready", flush=True)
+            return 1
+        time.sleep(0.05)
+    print(f"rank 0: never ready in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    try:
+        pend.collect()
+        print("rank 0: collect returned without raising", flush=True)
+    except RuntimeError as exc:
+        print(f"rank 0: collect raised after {time.monotonic() - t0:.1f} "
+              f"s: {exc}", flush=True)
+    t1 = time.monotonic()
+    mh.leave()
+    print(f"rank 0: left the group in {time.monotonic() - t1:.3f} s",
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(nccl_worker(sys.argv[1], int(sys.argv[2]), sys.argv[3]))
