@@ -124,7 +124,18 @@ toolkit. It
    tiered service dispatch; and every site seen, on those and on the
    8-strip and 8-shard engines at a cut ``strips_1m`` and the
    multi-process engine's device route over NCCL in one process at that
-   cut, on one of the port's raw gwlint R1 findings.
+   cut, on one of the port's raw gwlint R1 findings;
+15. ``bench_modes``: the port bench (``python -m goworld_tpu_torch.bench``)
+   as a user runs it, a process a mode, steps cut (``BENCH_MODES_ENV``):
+   the default run (``BENCH_MODE=all``: the headline, ``multispace_32``,
+   ``synthetic_10k``, ``boids_50k``, ``phases``, the cell, events and drain
+   sweeps, the self-tune) at full width, every config, sweep point and
+   phase key present without an error, the kernel on the card, the boids
+   winner drop-free; ``--sharded`` on each backend (parity with the
+   single-device engine, no fallback, fewer halo bytes than the
+   all-gather's), ``--fused`` (the fused hook never run) and
+   ``--pinned-floor`` under ``--history-dir`` (the ring's final frame);
+   the bench's headline printed beside the ``headline`` phase's.
 
 Phases that need more cards than the machine has print a line saying they
 did not run; on a machine with four cards (``chiprun --chips 4``) every
@@ -412,9 +423,22 @@ rsa_cert = {dir}/rsa.crt
 # The scenario matrix (goworld_tpu_torch/scenarios), each at its registered
 # config: the registry fixes the sizes and they are never tuned here.
 SCENARIOS = ("hotspot", "battle_royale", "service_heavy")
-# The port bench's headline (python -m goworld_tpu_torch.bench) at cut
-# steps: its pipelined and synchronous ticks.
-BENCH_ENV = {"BENCH_STEPS": "20", "BENCH_SYNC_STEPS": "10"}
+# The port bench's headline (python -m goworld_tpu_torch.bench, BENCH_MODE
+# aoi) at cut steps: its pipelined and synchronous ticks.
+BENCH_ENV = {"BENCH_MODE": "aoi", "BENCH_STEPS": "20", "BENCH_SYNC_STEPS": "10"}
+# bench_modes: the bench's device modes at full width, the default run's
+# pipelined and synchronous ticks cut (bench.py: 45 and 15); the sweeps'
+# ticks and the boids steps are bench.py's.
+BENCH_MODES_ENV = {"BENCH_STEPS": "30", "BENCH_SYNC_STEPS": "10"}
+# The default run's configs (its sweep points are the bench's CELL_SWEEP,
+# EVENTS_SWEEP and DRAIN_SWEEP) and its phase keys.
+BENCH_CONFIGS = ("multispace_32", "unity_200", "synthetic_10k", "boids_50k",
+                 "cell_sweep", "events_sweep", "drain_sweep", "pod_1m")
+BENCH_PHASES = ("table_ms", "feats_ms", "kernel_ms", "gather_ms",
+                "events_in_mask", "drain_ms", "drain_bsearch_ms",
+                "drain_grouped_ms", "drain_scatter_ms", "full_step_ms",
+                "est_tick_ms")
+BENCH_MODES_TIMEOUT_S = 900
 BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "backend", "device",
                 "entities", "ticks_per_sec", "events_per_tick",
                 "paged_ticks", "collect_p50_ms", "collect_p99_ms",
@@ -2890,8 +2914,7 @@ def drive_scenarios(tn, ek, device):
     Then both mask forms at hotspot's endgame cells (the densest cells the
     kernel sees), and the port bench's headline at cut steps. Returns the
     metrics and the mask rows (from the endgame cells)."""
-    import os
-
+    from goworld_tpu_torch.bench import headline_of
     from goworld_tpu_torch.scenarios import get_scenario
     from goworld_tpu_torch.scenarios.runner import run_scenario
 
@@ -2956,14 +2979,13 @@ def drive_scenarios(tn, ek, device):
     rows = kernel_checks(tn, ek, p, pos, ppos, space, device, active)
     print(json.dumps({"hotspot_endgame_cells": density}), flush=True)
 
-    # The port bench's headline at cut steps, as a user runs it.
-    env = dict(os.environ, **BENCH_ENV)
-    env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
-    out = subprocess.run(
-        [sys.executable, "-m", "goworld_tpu_torch.bench"], env=env,
-        capture_output=True, text=True, timeout=600, check=True,
-        cwd=Path(__file__).resolve().parent).stdout.strip().splitlines()
-    headline = json.loads(out[-1])
+    # The port bench's headline at cut steps, as a user runs it: the full
+    # record, then the compact headline last.
+    out = run_bench(BENCH_ENV, [], 600)
+    headline = json.loads(out[-2])
+    if json.loads(out[-1]) != headline_of(headline):
+        raise AssertionError(f"scenarios: the bench's last line is not its "
+                             f"headline: {out[-1]}")
     missing = [k for k in BENCH_FIELDS if k not in headline]
     if missing or headline.get("error"):
         raise AssertionError(f"scenarios: the bench's headline lacks "
@@ -2975,6 +2997,199 @@ def drive_scenarios(tn, ek, device):
     metrics = {"runs": runs, "hotspot_endgame_cells": density,
                "bench_aoi": headline, "bench_env": BENCH_ENV}
     return metrics, rows
+
+
+def run_bench(env_extra: dict, args: list, timeout: float) -> list[str]:
+    """``python -m goworld_tpu_torch.bench ARGS`` from the checkout's root,
+    as a user runs it: its stdout lines (a non-zero exit raises)."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, **env_extra)
+    env["PYTHONPATH"] = str(root)
+    return subprocess.run(
+        [sys.executable, "-m", "goworld_tpu_torch.bench", *args], env=env,
+        capture_output=True, text=True, timeout=timeout, check=True,
+        cwd=root).stdout.strip().splitlines()
+
+
+def bench_sweeps() -> dict:
+    """The default run's sweep points, by sweep."""
+    from goworld_tpu_torch import bench
+
+    return {
+        "cell_sweep": [f"cell_{int(c)}" for c, _ in bench.CELL_SWEEP],
+        "events_sweep": [f"max_events_{me}" for me in bench.EVENTS_SWEEP],
+        "drain_sweep": [f"drain_{dm}" for dm in bench.DRAIN_SWEEP],
+    }
+
+
+def hold_bench_all(result: dict, card: str) -> dict:
+    """The default run's record: every config and sweep point, none with an
+    error, the kernel on the card, the boids winner chosen by bench.py's
+    drop rule, every phase key positive. Returns its readings."""
+    from goworld_tpu_torch.bench import headline_of
+
+    what = "bench_modes all"
+    if result.get("error") or result.get("backend") != "kernel" \
+            or result.get("device") != card:
+        raise AssertionError(f"{what}: the headline ran {headline_of(result)}")
+    configs = result["configs"]
+    sweeps = bench_sweeps()
+    missing = [c for c in BENCH_CONFIGS if c not in configs]
+    for name, points in sweeps.items():
+        missing += [f"{name}.{k}" for k in points
+                    if k not in configs.get(name, {})]
+    if missing:
+        raise AssertionError(f"{what}: missing {missing}")
+    for name, points in sweeps.items():
+        for k in points:
+            entry = configs[name][k]
+            if "error" in entry or not entry["updates_per_sec"] > 0:
+                raise AssertionError(f"{what}: {name}.{k}: {entry}")
+    for name in ("multispace_32", "synthetic_10k", "boids_50k"):
+        entry = configs[name]
+        if entry.get("error") or entry.get("backend") != "kernel" \
+                or entry.get("device") != card or not entry["value"] > 0:
+            raise AssertionError(f"{what}: {name} ran "
+                                 f"{headline_of(entry)}: "
+                                 f"{entry.get('error')}")
+    boids = configs["boids_50k"]
+    sweep = boids["cell_sweep"]
+    for k, entry in sweep.items():
+        if "error" in entry:
+            raise AssertionError(f"{what}: boids {k}: {entry['error']}")
+    # bench.py's rule: the fastest point drop-free in the sweep runs at
+    # full length, the next on a drop; a winner with drops is reported only
+    # when every drop-free point dropped at full length (flocks condense
+    # past a cell's 128 lanes: on this world from the 18th step at cell 100).
+    if boids["cell_overflow_dropped"] != 0:
+        clean = [k for k, e in sweep.items() if e["dropped"] == 0]
+        if not all(sweep[k].get("disqualified_full_run_dropped", 0) > 0
+                   for k in clean) or f"cell_{int(boids['cell_size'])}" \
+                not in (clean or ["cell_100"]):
+            raise AssertionError(f"{what}: the boids winner dropped "
+                                 f"{boids['cell_overflow_dropped']} agents "
+                                 f"while a drop-free point remained: "
+                                 f"{sweep}")
+    # A promoted self-tune keeps the phases with the default config.
+    default = configs.get("default_config_headline")
+    phases = (default or result).get("phases", {})
+    bad = {k: phases.get(k) for k in BENCH_PHASES
+           if not (phases.get(k) or 0) > 0}
+    if bad or "error" in phases:
+        raise AssertionError(f"{what}: phases {bad}: {phases.get('error')}")
+    tune = [k for k in ("self_tune", "default_config_headline",
+                        "tuned_not_better") if k in configs]
+    if len(tune) != 1 or "error" in configs.get("self_tune", {}):
+        raise AssertionError(f"{what}: the self-tune outcome is "
+                             f"{ {k: configs[k] for k in tune} }")
+    return {
+        "value": result["value"],
+        "default_config_value": (default or result)["value"],
+        "config": {k: result[k] for k in ("cell_size", "grid", "max_events",
+                                          "drain_mode")},
+        "paged_ticks": result["paged_ticks"],
+        "post_step_drain_p99_ms": result["post_step_drain_p99_ms"],
+        "self_tune": tune[0],
+        **{name: configs[name]["value"]
+           for name in ("multispace_32", "synthetic_10k")},
+        "boids_50k": {k: boids[k] for k in ("value", "cell_size", "grid",
+                                            "cell_overflow_dropped")},
+        "boids_sweep": boids["cell_sweep"],
+        "phases": phases,
+        **{name: {k: v["updates_per_sec"] for k, v in configs[name].items()}
+           for name in sweeps},
+    }
+
+
+def drive_bench_modes(headline: dict, card: str) -> dict:
+    """bench_modes: the port bench's device modes, each in its own process
+    as a user runs it: the default run (``BENCH_MODE=all``) at full width
+    with its steps cut, ``--sharded`` on each backend, ``--fused`` and
+    ``--pinned-floor`` (under ``--history-dir``). Every mode must run the
+    kernel on the card and hold its own checks; the bench's headline is
+    printed beside the ``headline`` phase's at the same shapes."""
+    import shutil
+
+    from goworld_tpu_torch.bench import headline_of
+    from goworld_tpu_torch.telemetry import history
+
+    root = Path(__file__).resolve().parent
+    run_dir = root / "bench_modes_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir()
+    readings = {"env": BENCH_MODES_ENV}
+    seconds = {}
+
+    def bench(name, env_extra, args):
+        t0 = time.perf_counter()
+        lines = run_bench(dict(BENCH_MODES_ENV, **env_extra), args,
+                          BENCH_MODES_TIMEOUT_S)
+        seconds[name] = time.perf_counter() - t0
+        (run_dir / f"{name}.out").write_text("\n".join(lines) + "\n")
+        return lines
+
+    lines = bench("all", {"BENCH_MODE": "all"}, [])
+    result = json.loads(lines[-2])
+    if json.loads(lines[-1]) != headline_of(result):
+        raise AssertionError(f"bench_modes all: the last line is not the "
+                             f"headline: {lines[-1]}")
+    readings["all"] = hold_bench_all(result, card)
+    phase_value = headline["aoi_entity_updates_per_sec"]
+    readings["headline_beside_phase"] = {
+        "bench": readings["all"]["default_config_value"],
+        "headline_phase": phase_value,
+        "ratio": readings["all"]["default_config_value"] / phase_value,
+    }
+
+    for backend in ("kernel", "reference"):
+        name = f"sharded_{backend}"
+        r = json.loads(bench(name, {}, ["--sharded", "--sharded-backend",
+                                        backend])[-1])
+        if r.get("error") or r.get("backend") != backend \
+                or r.get("device") != card \
+                or r.get("parity_with_single_device") is not True \
+                or r.get("fallback_ticks") != 0 \
+                or r.get("halo_smaller_than_allgather") is not True:
+            raise AssertionError(f"bench_modes {name}: {r}")
+        readings[name] = {k: r[k] for k in (
+            "value", "runs", "parity_with_single_device", "fallback_ticks",
+            "fast_ticks", "shard_migrations", "halo_bytes_per_tick",
+            "allgather_equiv_bytes_per_tick", "comms_reduction")}
+
+    r = json.loads(bench("fused", {}, ["--fused"])[-1])
+    if r.get("error") or r.get("backend") != "kernel" \
+            or r.get("device") != card \
+            or r.get("fused_hook_never_traced") is not True:
+        raise AssertionError(f"bench_modes fused: {r}")
+    readings["fused"] = {k: r[k] for k in ("value", "entities", "steps",
+                                           "unfused", "fused")}
+
+    hist_dir = run_dir / "history"
+    r = json.loads(bench("pinned_floor", {}, [
+        "--pinned-floor", "--history-dir", str(hist_dir)])[-1])
+    if r.get("error") or r.get("backend") != "kernel" \
+            or r.get("device") != card or not r.get("value", 0) > 0:
+        raise AssertionError(f"bench_modes pinned_floor: {r}")
+    frames, torn = history.read_frames(str(hist_dir / "bench"))
+    if torn or not frames or frames[-1].get("process") != "bench" \
+            or frames[-1].get("final") is not True:
+        raise AssertionError(f"bench_modes: the history ring holds "
+                             f"{len(frames)} frames ({torn} torn), the last "
+                             f"{frames[-1] if frames else None}")
+    # The ring's final frame counts the run's step programs: a storm and
+    # ``steps`` ticks a repeat, each one launch of the kernel step.
+    steps = {labels["fn"]: n for labels, n in
+             frames[-1]["counters"].get("jit_launches_total", [])}
+    want = r["config"]["repeats"] * (r["config"]["steps"] + 1)
+    if steps != {"aoi_step_kernel": want}:
+        raise AssertionError(f"bench_modes: the history ring counts {steps} "
+                             f"step programs, not {want} of the kernel's")
+    readings["pinned_floor"] = {k: r[k] for k in ("value", "runs")}
+    readings["history"] = {"frames": len(frames), "jit_launches_total": steps}
+    readings["seconds"] = seconds
+    return readings
 
 
 def free_port() -> int:
@@ -4236,6 +4451,8 @@ def main() -> int:
         }
         row["max_abs_err"] = max(row["max_abs_err"], urow["max_abs_err"])
     drive_sync_check(tn, tm, ts, make_mesh, root, device)
+    bench_modes = drive_bench_modes(headline, torch.cuda.get_device_name(0))
+    print(json.dumps({"bench_modes": bench_modes}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": device_entry()}))

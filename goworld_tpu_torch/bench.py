@@ -1,20 +1,50 @@
-"""The port's benchmark: the repo's ``bench.py`` headline and its gate modes
-on PyTorch, printed as the same one-line JSON with ``backend`` and
-``device`` added.
+"""The port's benchmark: the repo's ``bench.py`` on PyTorch, its device modes
+and its gate modes, printed as the same JSON lines with ``backend``
+(``kernel`` | ``reference``) and ``device`` (the card's name, or ``cpu``)
+added.
 
-    python -m goworld_tpu_torch.bench                       # bench_aoi
+    python -m goworld_tpu_torch.bench                       # the default run
+    python -m goworld_tpu_torch.bench --sharded [--sharded-backend kernel|reference]
+    python -m goworld_tpu_torch.bench --fused
+    python -m goworld_tpu_torch.bench --pinned-floor
     python -m goworld_tpu_torch.bench --scenario hotspot [--scenario-engine sharded]
     python -m goworld_tpu_torch.bench --list-scenarios
     python -m goworld_tpu_torch.bench --chaos
-    ... [--slo-config goworld.ini] [--device cpu]
+    ... [--history-dir DIR] [--slo-config goworld.ini] [--device cpu]
 
-- no mode: ``bench_aoi``, the production AOI loop at the headline of
-  bench.py's accelerator branch (102,400 entities, one space, 44x44 cells
-  of 300, radius 100, cell capacity 128, ``max_events`` 131,072): the
-  enter storm off the clock, ``BENCH_STEPS`` pipelined ticks (one blocking
-  readback each), then ``BENCH_SYNC_STEPS`` synchronous ones for the
-  post-step drain latency. ``BENCH_N`` scales the entities (the grid
-  follows, at the same density), ``BENCH_MAX_EVENTS`` the inline budget.
+- no mode: the default run, ``BENCH_MODE=aoi|boids|multispace|all``
+  (default ``all``). ``aoi`` is ``bench_aoi``: the production AOI loop at
+  the headline of bench.py's accelerator branch (102,400 entities, one
+  space, 44x44 cells of 300, radius 100, cell capacity 128, ``max_events``
+  131,072): the enter storm off the clock, ``BENCH_STEPS`` pipelined ticks
+  (one blocking readback each), then ``BENCH_SYNC_STEPS`` synchronous ones
+  for the post-step drain latency. ``multispace`` is the 32-space shape
+  (32x32 cells of 400), ``boids`` is ``bench_boids_tuned`` (51,200 agents,
+  the drop-free winner of ``BOIDS_CELL_SWEEP``). ``all`` on the card runs
+  the headline, ``multispace_32``, ``synthetic_10k``, ``boids_50k``, the
+  phase profile (``phases``), the cell, events and drain sweeps at
+  ``BENCH_SWEEP_STEPS`` and the self-tune promotion (only at the canonical
+  102,400 entities); with ``--device cpu`` it runs the headline and
+  ``multispace_32`` and marks ``boids_50k`` skipped. It prints the full
+  record, then the compact headline as the last line. ``BENCH_N`` scales
+  the entities (the grid follows, at the same density; the phase profile
+  runs at the headline's geometry), ``BENCH_MAX_EVENTS`` the inline budget,
+  ``BENCH_DRAIN_MODE`` the drain's select, ``BENCH_BOIDS_N`` the agents,
+  ``BENCH_BOIDS_STEPS`` / ``BENCH_BOIDS_SWEEP_STEPS`` the boids steps;
+  ``BENCH_REHEARSAL=1`` takes the card's branch on ``--device cpu``.
+- ``--sharded``: the strip engine (``parallel/spatial.py``) on
+  ``make_mesh(8)``, eight strips on one device, at a fixed config
+  (``SHARDED_FLOOR_CONFIG`` for the ``reference`` backend,
+  ``PALLAS_SHARDED_CONFIG`` for ``kernel``, the in-kernel drain): exact
+  event parity with the single-device engine on the same trace, then best
+  of ``repeats`` pipelined runs, with both backends' structural halo and
+  all-gather bytes. ``--sharded-backend`` defaults to ``kernel`` on the
+  card and ``reference`` on the CPU.
+- ``--fused``: the port's runtime with N columnar avatars on the batched
+  AOI service, ``fuse_logic`` off then on: the host entity-logic time a
+  tick, and the fused hook never run.
+- ``--pinned-floor``: the pipelined AOI loop at ``PINNED_FLOOR_CONFIG``,
+  best of ``repeats``. The port has no floors file, so nothing is compared.
 - ``--scenario <name>``: one registered scenario (``scenarios/``) in gate
   mode: the fixed registry config, the verify pass (interest-set oracle
   and per-tick invariants) then the timed measure pass, with the one-launch
@@ -24,19 +54,23 @@ on PyTorch, printed as the same one-line JSON with ``backend`` and
 - ``--chaos``: the chaos suite over the port's in-process cluster, once a
   transport (tcp, then uds), plus the migration-during-restart phase on the
   two-game cluster. A gate: any failure or bot error exits 1.
+- ``--history-dir <dir>``: the run's own black box: a ``HistoryWriter``
+  ring under ``<dir>/bench`` whose final frame carries the run's telemetry.
 - ``--slo-config <ini>``: the ``[slo]`` budgets that ``--scenario`` and
   ``--chaos`` are judged against.
 
 Everything runs on the CUDA card unless ``--device cpu`` is given; without
-a card the AOI modes fail in their JSON line's ``error``. The chaos
-cluster's games run ``[aoi] backend = xzlist`` and never touch the card.
-The root bench's other modes (``--sharded``, ``--fused``, boids, fanout,
-multigame, the floors) are not ported yet (ROADMAP).
+a card a mode fails in its JSON line's ``error`` (it never falls back to the
+CPU). The exit code is 0 but for ``--chaos``. The chaos cluster's games run
+``[aoi] backend = xzlist`` and never touch the card. The root bench's
+cluster modes (fanout, trace overhead, multigame) and its floors are not
+ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -48,8 +82,79 @@ import numpy as np
 HEADLINE_BASELINE = 100_000 * 30  # 100k entities @ 30 Hz (BASELINE.md)
 P99_TARGET_MS = 5.0
 
+# Sweep points (single source for both the sweep loops and self-tuning), as
+# in bench.py: cell sizes with the grid that keeps the 13,200-unit world of
+# the canonical 102,400 entities, the per-side event budgets, the drain's
+# word-select strategies.
+CELL_SWEEP = ((100.0, 132), (150.0, 88), (300.0, 44), (440.0, 30), (600.0, 22))
+EVENTS_SWEEP = (65536, 98304, 131072, 163840, 196608)
+DRAIN_SWEEP = ("bsearch", "grouped", "scatter")
+CANONICAL_N = 102400
+
+# Boids supercell sweep at a fixed 100-unit interaction radius over the same
+# world span: bigger cells pack more agents per 128-lane cell.
+BOIDS_CELL_SWEEP = (100.0, 160.0, 200.0, 320.0)
+BOIDS_BASELINE = 50_000 * 30  # 50k agents @ 30 Hz
+
+# bench.py's fixed configs, never self-tuned and never env-scaled.
+PINNED_FLOOR_CONFIG = {
+    "n": 2048, "cell_size": 100.0, "grid": 32, "space_slots": 1,
+    "cell_capacity": 64, "max_events": 32768, "drain_mode": "bsearch",
+    "steps": 20, "repeats": 3,
+}
+# The strip engine's reference backend: 8,192 entities over a 128-column
+# torus (16 columns a strip), radius == cell_size, halo_cap 768 covering
+# the ~384-row uniform bands 2x.
+SHARDED_FLOOR_CONFIG = {
+    "n": 8192, "cell_size": 100.0, "grid": 128, "space_slots": 1,
+    "cell_capacity": 32, "max_events": 32768, "shards": 8,
+    "halo_cap": 768, "active": 7168, "steps": 20, "repeats": 3,
+    "parity_ticks": 3,
+}
+# The kernel backend (bench.py's pallas_interpret config): 2,048 entities
+# over a 192-column torus, grid_z 8, halo_cap 128, strip_cols 48, radius 40
+# so the seam-free guard holds on drift ticks (the one-launch fast tick).
+PALLAS_SHARDED_CONFIG = {
+    "n": 2048, "cell_size": 100.0, "grid": 192, "grid_z": 8,
+    "space_slots": 1, "cell_capacity": 32, "max_events": 16384,
+    "shards": 8, "halo_cap": 128, "strip_cols": 48, "radius": 40.0,
+    "active": 1792, "steps": 8, "repeats": 1, "parity_ticks": 2,
+}
+SHARDED_CONFIGS = {"reference": SHARDED_FLOOR_CONFIG,
+                   "kernel": PALLAS_SHARDED_CONFIG}
+
 CHAOS_CONFIG = {"dispatchers": 2, "bots": 12, "multigame_bots": 12,
                 "scenarios_per_transport": 10}
+
+# Where the port covers the default run's configs that are not bench runs.
+UNITY_200_COVERED_BY = (
+    "chip_smoke.py unity_demo (16 spaces of 103 entities through the "
+    "port's runtime and batched AOI service on the card; "
+    "tests/test_torch_examples.py on the CPU)")
+POD_1M_COVERED_BY = (
+    "chip_smoke.py multihost_1m (BASELINE config 5: 4 processes x 2 shards "
+    "on 4 cards) and entity_1m (8 shards on one card)")
+
+
+def _resolve(device):
+    """``device`` as a torch.device: None means the CUDA card, and raises
+    when there is none (a mode never falls back to the CPU)."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the bench runs on the CUDA card unless told "
+                               "otherwise, and no CUDA device is available; "
+                               "pass --device cpu for the plain versions")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _device_name(device) -> str:
@@ -60,34 +165,79 @@ def _device_name(device) -> str:
     return str(device)
 
 
-def bench_aoi(device=None) -> dict:
+def _platform(device) -> str:
+    return "gpu" if device.type == "cuda" else device.type
+
+
+def _exc_line() -> str:
+    """One diagnosable line for a caught exception: its type and message."""
+    tp, exc, _ = sys.exc_info()
+    return f"{tp.__name__}: {str(exc)[:300]}"
+
+
+def _steady_state_retraces() -> int:
+    """The sentinel's retrace count (0 by construction: PyTorch traces
+    nothing); floors report the delta across their own run."""
+    from goworld_tpu_torch.telemetry import sentinel
+
+    return int(sentinel.steady_state_retraces())
+
+
+def bench_aoi(n: int | None = None, space_slots: int = 4, n_spaces: int = 1,
+              label: str = "aoi", cell_override: float | None = None,
+              grid_override: int | None = None,
+              max_events_override: int | None = None,
+              drain_mode: str | None = None, device=None,
+              steps: int | None = None) -> dict:
     """The production AOI loop (the BatchAOIService path): pipelined
-    ``step_async`` and one packed readback a tick, at the headline
-    geometry of the root bench's accelerator branch."""
+    ``step_async`` and one packed readback a tick, at the geometry of the
+    root bench's accelerator branch. ``n_spaces`` > 1 is BASELINE config 3
+    (batched cross-space AOI in one launch). ``steps`` overrides
+    ``BENCH_STEPS`` (the sweeps' short runs)."""
     from goworld_tpu_torch.ops import NeighborEngine, NeighborParams
 
-    n = int(os.environ.get("BENCH_N", "102400"))
-    cell, cap = 300.0, 128
-    grid = max(8, int(round(44 * (n / 102400.0) ** 0.5 / 4)) * 4)
-    max_events = int(os.environ.get("BENCH_MAX_EVENTS", "131072"))
+    dev = _resolve(device)
+    card = dev.type == "cuda"
+    if n is None:
+        n = int(os.environ.get("BENCH_N", str(CANONICAL_N)))
+    # Never fold into more slots than there are spaces: empty slabs would
+    # run the full per-cell kernel work on NaN rows.
+    space_slots = max(1, min(space_slots, n_spaces))
+    if space_slots > 4:
+        cell, cap = 400.0, 128
+        grid = max(8, int(round(32 * (n / 102400.0) ** 0.5 / 4)) * 4)
+    else:
+        cell, cap = 300.0, 128
+        grid = max(8, int(round(44 * (n / 102400.0) ** 0.5 / 4)) * 4)
+    if cell_override is not None:
+        cell = cell_override
+    if grid_override is not None:
+        grid = grid_override
+    max_events = max_events_override or int(
+        os.environ.get("BENCH_MAX_EVENTS", "131072"))
     params = NeighborParams(
-        capacity=n, cell_size=cell, grid_x=grid, grid_z=grid, space_slots=1,
-        cell_capacity=cap, max_events=max_events, drain_mode="bsearch")
-    eng = NeighborEngine(params, device=device)
+        capacity=n, cell_size=cell, grid_x=grid, grid_z=grid,
+        space_slots=space_slots, cell_capacity=cap, max_events=max_events,
+        drain_mode=drain_mode or os.environ.get("BENCH_DRAIN_MODE", "bsearch"),
+    )
+    eng = NeighborEngine(params, device=dev)
     eng.reset()
 
     rng = np.random.default_rng(0)
+    # ~6 entities per 100x100 cell over the world, ~19 AOI neighbors each.
     world = grid * cell
     pos = rng.uniform(0, world, (n, 2)).astype(np.float32)
     active = np.ones(n, bool)
-    space = np.zeros(n, np.int32)
+    space = (np.arange(n) % n_spaces).astype(np.int32)
     radius = np.full(n, 100.0, np.float32)
     vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
 
     # Warmup: the first tick's full enter storm, paged, off the clock.
     eng.step(pos, active, space, radius)
 
-    steps = max(2, int(os.environ.get("BENCH_STEPS", "45")))
+    if steps is None:  # the CPU run is a diagnostic: fewer steps
+        steps = int(os.environ.get("BENCH_STEPS", "45" if card else "10"))
+    steps = max(2, steps)
     events = 0
     paged_ticks = 0  # ticks whose event count overflowed the inline budget
     collect_lat: list[float] = []
@@ -111,6 +261,7 @@ def bench_aoi(device=None) -> dict:
         pos += vel
         np.clip(pos, 0.0, world, out=pos)
         t_dispatch = time.perf_counter()
+        # Steady state moves positions only, as the service's ticks do.
         nxt = eng.step_async(pos, active, space, radius, meta_dirty=False)
         if pending is not None:
             land(pending, pending_dispatch_t)
@@ -121,7 +272,8 @@ def bench_aoi(device=None) -> dict:
     # The post-step drain: wait for the step, then time collect() alone
     # (BASELINE's p99 < 5 ms budget; the pipelined diff latency is at least
     # one tick by design).
-    sync_steps = max(2, int(os.environ.get("BENCH_SYNC_STEPS", "15")))
+    sync_steps = max(2, int(os.environ.get(
+        "BENCH_SYNC_STEPS", "15" if card else "3")))
     drain_lat: list[float] = []
     for _ in range(sync_steps):
         pos += vel
@@ -141,7 +293,7 @@ def bench_aoi(device=None) -> dict:
         return round(float(np.percentile(a, q)), 3)
 
     return {
-        "metric": "aoi_entity_updates_per_sec",
+        "metric": f"{label}_entity_updates_per_sec",
         "value": round(updates_per_sec, 1),
         "unit": "entity-updates/sec",
         "vs_baseline": round(updates_per_sec / HEADLINE_BASELINE, 3),
@@ -152,8 +304,7 @@ def bench_aoi(device=None) -> dict:
         "grid": grid,
         "max_events": max_events,
         "drain_mode": params.drain_mode,
-        "spaces": 1,
-        "steps": steps,
+        "spaces": n_spaces,
         "ticks_per_sec": round(ticks_per_sec, 2),
         "events_per_tick": round(events / steps, 1),
         "paged_ticks": paged_ticks,
@@ -167,7 +318,703 @@ def bench_aoi(device=None) -> dict:
         "post_step_drain_meets_target": bool(
             np.percentile(s_ms, 99) < P99_TARGET_MS),
         "p99_target_ms": P99_TARGET_MS,
+        "p99_axis_note": (
+            "BASELINE's p99<5ms applies to post_step_drain_* (events on "
+            "host after the device step completes); diff_latency_* spans "
+            "dispatch->host across the pipelined loop and is >= 1 tick by "
+            "design (diffs land one tick late, batched.py)"
+        ),
     }
+
+
+def bench_pinned_floor(device=None) -> dict:
+    """``--pinned-floor``: the pipelined AOI loop (``step_async`` and one
+    packed readback a tick) at ``PINNED_FLOOR_CONFIG``, best of
+    ``repeats``. The port has no floors file, so no floor is compared."""
+    from goworld_tpu_torch.ops import NeighborEngine, NeighborParams
+
+    dev = _resolve(device)
+    retraces0 = _steady_state_retraces()
+    c = PINNED_FLOOR_CONFIG
+    n = c["n"]
+    params = NeighborParams(
+        capacity=n, cell_size=c["cell_size"], grid_x=c["grid"],
+        grid_z=c["grid"], space_slots=c["space_slots"],
+        cell_capacity=c["cell_capacity"], max_events=c["max_events"],
+        drain_mode=c["drain_mode"],
+    )
+    world = c["grid"] * c["cell_size"]
+    runs = []
+    for _rep in range(c["repeats"]):
+        eng = NeighborEngine(params, device=dev)
+        eng.reset()
+        rng = np.random.default_rng(0)  # the same world every repeat
+        pos = rng.uniform(0, world, (n, 2)).astype(np.float32)
+        active = np.ones(n, bool)
+        space = np.zeros(n, np.int32)
+        radius = np.full(n, 100.0, np.float32)
+        vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+        eng.step(pos, active, space, radius)  # the enter storm
+        pending = None
+        t0 = time.perf_counter()
+        for _ in range(c["steps"]):
+            pos += vel
+            np.clip(pos, 0.0, world, out=pos)
+            nxt = eng.step_async(pos, active, space, radius,
+                                 meta_dirty=False)
+            if pending is not None:
+                pending.collect()
+            pending = nxt
+        pending.collect()
+        runs.append(c["steps"] / (time.perf_counter() - t0) * n)
+    return {
+        "metric": "pinned_floor_updates_per_sec",
+        "value": round(max(runs), 1),
+        "unit": "entity-updates/sec",
+        "runs": [round(r, 1) for r in runs],
+        "config": dict(c),
+        "platform": _platform(dev),
+        "backend": eng.backend,
+        "device": _device_name(dev),
+        "steady_state_retraces": _steady_state_retraces() - retraces0,
+        "floor_file": None,
+    }
+
+
+def _spatial_engine_for(c: dict, backend: str, mesh):
+    """The strip engine for a sharded config, constructed and not stepped
+    (also the other backend's, for its structural bytes)."""
+    from goworld_tpu_torch.ops import NeighborParams
+    from goworld_tpu_torch.parallel import SpatialShardedNeighborEngine
+
+    params = NeighborParams(
+        capacity=c["n"], cell_size=c["cell_size"], grid_x=c["grid"],
+        grid_z=c.get("grid_z", c["grid"]), space_slots=c["space_slots"],
+        cell_capacity=c["cell_capacity"], max_events=c["max_events"],
+    )
+    return SpatialShardedNeighborEngine(
+        params, mesh, halo_cap=c["halo_cap"], backend=backend,
+        strip_cols=c.get("strip_cols"))
+
+
+def bench_sharded(backend: str | None = None, device=None) -> dict:
+    """``--sharded``: updates/s of the strip engine on eight strips of one
+    device at its backend's fixed config, best of ``repeats`` pipelined
+    runs, after an exact event-set parity check against the single-device
+    engine (reference backend) on the same trace. The line carries both
+    backends' structural halo and all-gather bytes a tick."""
+    from goworld_tpu_torch.ops import NeighborEngine, NeighborParams
+    from goworld_tpu_torch.parallel import make_mesh
+
+    dev = _resolve(device)
+    if backend is None:
+        backend = "kernel" if dev.type == "cuda" else "reference"
+    if backend not in SHARDED_CONFIGS:
+        raise ValueError(f"unknown --sharded-backend {backend!r}")
+    c = SHARDED_CONFIGS[backend]
+    n = c["n"]
+    params = NeighborParams(
+        capacity=n, cell_size=c["cell_size"], grid_x=c["grid"],
+        grid_z=c.get("grid_z", c["grid"]), space_slots=c["space_slots"],
+        cell_capacity=c["cell_capacity"], max_events=c["max_events"],
+    )
+    mesh = make_mesh(c["shards"], dev)
+    retraces0 = _steady_state_retraces()
+    world = c["grid"] * c["cell_size"]
+    world_z = c.get("grid_z", c["grid"]) * c["cell_size"]
+
+    def make_world():
+        rng = np.random.default_rng(0)
+        pos = rng.uniform(0, world, (n, 2)).astype(np.float32)
+        pos[:, 1] %= world_z
+        active = np.zeros(n, bool)
+        active[:c["active"]] = True
+        space = np.zeros(n, np.int32)
+        radius = np.full(n, c.get("radius", 100.0), np.float32)
+        vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+        return pos, active, space, radius, vel
+
+    eng = _spatial_engine_for(c, backend, mesh)
+    other_backend = "kernel" if backend == "reference" else "reference"
+    other = _spatial_engine_for(SHARDED_CONFIGS[other_backend],
+                                other_backend, mesh)
+
+    # Exact event-set parity on the measured trace.
+    single = NeighborEngine(params, backend="reference", device=dev)
+    single.reset()
+    eng.reset()
+    pos, active, space, radius, vel = make_world()
+    parity = True
+    for _ in range(c["parity_ticks"]):
+        e1, l1, d1 = single.step(pos, active, space, radius)
+        e2, l2, d2 = eng.step(pos, active, space, radius)
+        if (d1 != d2
+                or sorted(map(tuple, e1)) != sorted(map(tuple, e2))
+                or sorted(map(tuple, l1)) != sorted(map(tuple, l2))):
+            parity = False
+            break
+        pos += vel
+        np.clip(pos, 0.0, world, out=pos)
+
+    runs = []
+    fallback_ticks = 0
+    migrations = 0
+    fast_ticks = 0
+    for _rep in range(c["repeats"]):
+        eng.reset()
+        fb0, mg0 = eng.total_fallbacks, eng.total_migrations
+        ft0 = eng.total_fast_ticks
+        pos, active, space, radius, vel = make_world()
+        eng.step(pos, active, space, radius)  # the enter storm
+        pending = None
+        t0 = time.perf_counter()
+        for _ in range(c["steps"]):
+            pos += vel
+            np.clip(pos, 0.0, world, out=pos)
+            nxt = eng.step_async(pos, active, space, radius,
+                                 meta_dirty=False)
+            if pending is not None:
+                pending.collect()
+            pending = nxt
+        pending.collect()
+        runs.append(c["steps"] / (time.perf_counter() - t0) * n)
+        fallback_ticks += eng.total_fallbacks - fb0
+        migrations += eng.total_migrations - mg0
+        fast_ticks += eng.total_fast_ticks - ft0
+    return {
+        "metric": "sharded_updates_per_sec",
+        "value": round(max(runs), 1),
+        "unit": "entity-updates/sec",
+        "runs": [round(r, 1) for r in runs],
+        "config": dict(c),
+        "mesh": f"1x{c['shards']}",
+        "mesh_devices": c["shards"],
+        "backend": backend,
+        "device": _device_name(dev),
+        "shard_backend": backend,
+        "shard_mode": "spatial",
+        "platform": _platform(dev),
+        "parity_with_single_device": parity,
+        # What the halo exchange moves a tick against what the all-gather
+        # formulation would move, for the measured backend at its config
+        # and for the other backend at its own.
+        "halo_bytes_per_tick": eng.halo_bytes_per_tick,
+        "allgather_equiv_bytes_per_tick": eng.allgather_bytes_per_tick,
+        "halo_smaller_than_allgather":
+            eng.halo_bytes_per_tick < eng.allgather_bytes_per_tick,
+        "comms_reduction": round(
+            eng.allgather_bytes_per_tick / max(1, eng.halo_bytes_per_tick),
+            2),
+        f"{other_backend}_halo_bytes_per_tick": other.halo_bytes_per_tick,
+        f"{other_backend}_allgather_equiv_bytes_per_tick":
+            other.allgather_bytes_per_tick,
+        f"{other_backend}_comms_reduction": round(
+            other.allgather_bytes_per_tick
+            / max(1, other.halo_bytes_per_tick), 2),
+        "fallback_ticks": fallback_ticks,
+        "shard_migrations": migrations,
+        # Collected steady ticks whose seam-free guard held (the kernel
+        # config's radius 40 keeps it true on drift).
+        "fast_ticks": fast_ticks,
+        "steady_state_retraces": _steady_state_retraces() - retraces0,
+        "floor_file": None,
+    }
+
+
+def bench_boids(cell: float = 100.0, label: str = "boids", device=None,
+                steps: int | None = None) -> dict:
+    """BASELINE config 4: the boids step (51,200 agents, AOI and steering in
+    one kernel launch, device-resident). The grid derives from a
+    cell-independent world target, so every sweep point simulates the same
+    density (within half a cell of rounding). ``steps`` overrides
+    ``BENCH_BOIDS_STEPS``."""
+    import torch
+
+    from goworld_tpu_torch.ops.boids import BoidsEngine, BoidsParams
+
+    dev = _resolve(device)
+    n = int(os.environ.get("BENCH_BOIDS_N", "51200"))
+    world_target = 6400.0 * (n / 51200.0) ** 0.5
+    grid = max(4, int(round(world_target / cell)))
+    p = BoidsParams(capacity=n, cell_size=cell, grid_x=grid, grid_z=grid,
+                    radius=100.0)
+    eng = BoidsEngine(p, device=dev)
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0, [p.world_x, p.world_z], (n, 2)).astype(np.float32)
+    vel = rng.normal(0, 3.0, (n, 2)).astype(np.float32)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+
+    pos, vel, _ = eng.step(pos, vel, active)  # first use, off the clock
+    _sync(dev)
+    if steps is None:
+        steps = int(os.environ.get("BENCH_BOIDS_STEPS", "60"))
+    steps = max(2, steps)
+    drops = []  # device scalars, read only after the timed loop
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        pos, vel, _ = eng.step(pos, vel, active)  # chained on the device
+        drops.append(eng.last_dropped)
+    _sync(dev)
+    t_all = time.perf_counter() - t0
+    # Summed over every tick: condensing flocks can overflow mid-run and be
+    # clean on the last tick.
+    dropped = int(torch.stack(drops).sum())
+    ticks_per_sec = steps / t_all
+    updates_per_sec = ticks_per_sec * n
+    return {
+        "metric": f"{label}_agent_updates_per_sec",
+        "value": round(updates_per_sec, 1),
+        "unit": "agent-updates/sec",
+        "vs_baseline": round(updates_per_sec / BOIDS_BASELINE, 3),
+        "backend": eng.backend,
+        "device": _device_name(dev),
+        "agents": n,
+        "cell_size": cell,
+        "grid": grid,
+        "ticks_per_sec": round(ticks_per_sec, 2),
+        "cell_overflow_dropped": dropped,
+    }
+
+
+def bench_boids_tuned(device=None) -> dict:
+    """Sweep the supercell sizes in short runs (``BENCH_BOIDS_SWEEP_STEPS``)
+    and run the fastest drop-free one at full length. Flocking clusters
+    agents, so a config that drops agents to cell overflow is disqualified
+    (its steering is silently wrong); the full-length run checks again and
+    falls to the next candidate if it drops."""
+    sweep_steps = int(os.environ.get("BENCH_BOIDS_SWEEP_STEPS", "15"))
+    sweep = {}
+    candidates = []  # drop-free configs
+    for cell in BOIDS_CELL_SWEEP:
+        try:
+            r = bench_boids(cell=cell, label=f"boids_c{int(cell)}",
+                            device=device, steps=sweep_steps)
+            sweep[f"cell_{int(cell)}"] = {
+                "updates_per_sec": r["value"],
+                "dropped": r["cell_overflow_dropped"],
+            }
+            if r["cell_overflow_dropped"] == 0:
+                candidates.append((r["value"], cell))
+        except Exception:
+            sweep[f"cell_{int(cell)}"] = {"error": _exc_line()}
+    candidates.sort(reverse=True)
+    order = [c for _, c in candidates] or [BOIDS_CELL_SWEEP[0]]
+    result = None
+    for cell in order:
+        result = bench_boids(cell=cell, device=device)
+        if result["cell_overflow_dropped"] == 0:
+            break
+        # If every config drops, the last one is reported with its nonzero
+        # cell_overflow_dropped.
+        sweep[f"cell_{int(cell)}"]["disqualified_full_run_dropped"] = (
+            result["cell_overflow_dropped"])
+    result["metric"] = "boids_agent_updates_per_sec"
+    result["cell_sweep"] = sweep
+    return result
+
+
+def bench_phase_profile(n: int = CANONICAL_N, cell: float = 300.0,
+                        grid: int = 44, device=None) -> dict:
+    """The tick budget by stage: each piece of the kernel step
+    (``ops/neighbor.py``) on its own, synchronized, best of 3, on one space
+    slot as the headline. ``events_in_mask`` is the enter events of the
+    step from ``ppos`` to ``pos``."""
+    import torch
+
+    from goworld_tpu_torch.ops import neighbor as nb
+    from goworld_tpu_torch.ops.event_kernel import event_mask
+
+    dev = _resolve(device)
+    p = nb.NeighborParams(
+        capacity=n, cell_size=cell, grid_x=grid, grid_z=grid,
+        space_slots=1, cell_capacity=128, max_events=131072,
+    )
+    rng = np.random.default_rng(0)
+    world = grid * cell
+    pos_h = rng.uniform(0, world, (n, 2)).astype(np.float32)
+    ppos_h = pos_h + rng.normal(0, 3, (n, 2)).astype(np.float32)
+    pos = torch.as_tensor(pos_h, device=dev)
+    ppos = torch.as_tensor(ppos_h, device=dev)
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    spc = torch.zeros(n, dtype=torch.int32, device=dev)
+    rad = torch.full((n,), 100.0, dtype=torch.float32, device=dev)
+
+    def t(fn, iters=3):
+        fn()  # warm
+        _sync(dev)
+        best = None
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        return round(best * 1000.0, 4)
+
+    def phase_table():
+        cx, cz, sm = nb._bins(p, pos, spc)
+        buc = (sm * p.grid_z + cz) * p.grid_x + cx
+        return nb._build_table(p, buc, act, nb.LANES)
+
+    out = {}
+    out["table_ms"] = t(phase_table)
+    table, slot, _, order, dst = phase_table()
+
+    def phase_feats():
+        xs = torch.where(slot >= 0, pos[:, 0], float("nan"))
+        xsp = torch.where(slot >= 0, ppos[:, 0], float("nan"))
+        return nb._scatter_feats(p, dst, order, (xs, pos[:, 1], spc, rad),
+                                 (xsp, ppos[:, 1], spc, rad))
+
+    out["feats_ms"] = t(phase_feats)
+    cells = phase_feats()
+    out["kernel_ms"] = t(lambda: event_mask(cells, dual=True))
+    packed_cells = event_mask(cells, dual=True)[..., :nb._W]
+
+    def phase_gather():
+        pe = nb._per_entity(packed_cells, slot)
+        return pe, nb._popcount16(pe).sum()
+
+    out["gather_ms"] = t(phase_gather)
+    packed_e, cnt = phase_gather()
+    out["events_in_mask"] = int(cnt)
+    cx, cz, sm = nb._bins(p, pos, spc)
+    out["drain_ms"] = t(
+        lambda: nb._drain_bits(p, packed_e, cx, cz, sm, table, 0))
+    # Per-mode drain attribution: the same inputs, each select strategy.
+    for dm in DRAIN_SWEEP:
+        if dm == p.drain_mode:
+            out[f"drain_{dm}_ms"] = out["drain_ms"]
+            continue
+        pm = dataclasses.replace(p, drain_mode=dm)
+        out[f"drain_{dm}_ms"] = t(
+            lambda pm=pm: nb._drain_bits(pm, packed_e, cx, cz, sm, table, 0))
+    cxp, czp, smp = nb._bins(p, ppos, spc)
+    bucp = (smp * p.grid_z + czp) * p.grid_x + cxp
+    table_p, slot_p, _, order_p, dst_p = nb._build_table(
+        p, bucp, act, nb.LANES)
+    out["full_step_ms"] = t(lambda: nb._step_pallas(
+        p, ppos, act, spc, rad, cxp, czp, smp, table_p, slot_p, order_p,
+        dst_p, pos, act, spc, rad))
+    # A steady tick: one table + feats + kernel chain, one drain a mask,
+    # one slot gather.
+    out["est_tick_ms"] = round(
+        out["table_ms"] + out["feats_ms"] + out["kernel_ms"]
+        + 2 * out["drain_ms"] + out["gather_ms"], 4)
+    return out
+
+
+def bench_fused(device=None) -> dict:
+    """``--fused``: the port's runtime (no sockets) with N columnar avatars
+    on the batched AOI service, driven through the production tick path
+    with ``fuse_logic`` off, then on, measuring the host cost of the entity
+    logic phase (``run_tick_batches``) a tick. Fused, the class's hook never
+    runs and the logic rides the engine's step."""
+    from goworld_tpu_torch.entity import entity_manager as em
+    from goworld_tpu_torch.entity.columns import columnar_tick
+    from goworld_tpu_torch.entity.entity import Entity
+    from goworld_tpu_torch.entity.space import Space
+    from goworld_tpu_torch.entity.vector import Vector3
+    from goworld_tpu_torch.ops import NeighborParams
+
+    dev = _resolve(device)
+    n = int(os.environ.get("BENCH_FUSED_N", "1024"))
+    steps = int(os.environ.get("BENCH_FUSED_STEPS", "60"))
+    backend = None
+
+    def run(fuse: bool) -> dict:
+        nonlocal backend
+        em.cleanup_for_tests()
+
+        def drift(x, y, z, yaw, dt, vx, vz):
+            return x + vx * dt, y, z + vz * dt, yaw + 10.0 * dt, vx, vz
+
+        class FusedSpace(Space):
+            def on_space_created(self):
+                if self.kind == 1:
+                    self.enable_aoi(100.0)
+
+        class FusedAvatar(Entity):
+            on_tick_batch = columnar_tick(drift, ("vx", "vz"))
+
+            @classmethod
+            def describe_entity_type(cls, desc):
+                desc.set_use_aoi(True, 100.0)
+                desc.define_attr("vx", "Column")
+                desc.define_attr("vz", "Column")
+
+        em.register_space(FusedSpace)
+        em.register_entity(FusedAvatar)
+        rt = em.runtime
+        rt.aoi_backend = "batched"
+        rt.aoi_device = str(dev)
+        rt.aoi_params = NeighborParams(
+            capacity=max(256, ((n + 256 + 255) // 256) * 256),
+            cell_size=100.0, grid_x=32, grid_z=32, space_slots=1,
+            cell_capacity=64, max_events=32768)
+        rt.aoi_fuse_logic = fuse
+        try:
+            space = em.create_space_locally(1)
+            rng = np.random.default_rng(0)
+            for _ in range(n):
+                e = em.create_entity_locally(
+                    "FusedAvatar", space=space,
+                    pos=Vector3(float(rng.uniform(0, 3200)), 0.0,
+                                float(rng.uniform(0, 3200))))
+                e.attrs["vx"] = float(rng.normal(0, 3.0))
+                e.attrs["vz"] = float(rng.normal(0, 3.0))
+            svc = rt.aoi_service
+            backend = svc.engine.backend
+            for _ in range(3):  # warm: first use + the enter storm
+                rt.slabs.run_tick_batches()
+                svc.tick()
+            logic_s = 0.0
+            aoi_s = 0.0
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                rt.slabs.run_tick_batches()
+                t1 = time.perf_counter()
+                svc.tick()
+                # The step's device time belongs to the AOI phase: without
+                # this wait the unfused hook's device work would queue
+                # behind the in-flight step and the logic phase would
+                # absorb the step's time.
+                pend = svc._pending
+                if pend is not None:
+                    pend[0].wait_device()
+                t2 = time.perf_counter()
+                logic_s += t1 - t0
+                aoi_s += t2 - t1
+            hook = FusedAvatar.on_tick_batch.__func__
+            return {
+                "entity_logic_host_us_per_tick": round(
+                    logic_s / steps * 1e6, 1),
+                "aoi_phase_us_per_tick": round(aoi_s / steps * 1e6, 1),
+                "hook_jit_traces": hook.jit_cache_size(),
+            }
+        finally:
+            em.cleanup_for_tests()
+
+    unfused = run(False)
+    fused = run(True)
+    collapse = (unfused["entity_logic_host_us_per_tick"]
+                / max(fused["entity_logic_host_us_per_tick"], 0.01))
+    return {
+        "metric": "fused_entity_logic_collapse",
+        "value": round(collapse, 1),
+        "unit": "x (host entity_logic us, unfused/fused)",
+        "entities": n,
+        "steps": steps,
+        "unfused": unfused,
+        "fused": fused,
+        # Fused ticks must never run the class's hook.
+        "fused_hook_never_traced": fused["hook_jit_traces"] == 0,
+        "platform": _platform(dev),
+        "backend": backend,
+        "device": _device_name(dev),
+    }
+
+
+class _SkipSelfTune(Exception):
+    pass
+
+
+def _sweep_entry(r: dict, *extra: str) -> dict:
+    return {"updates_per_sec": r["value"],
+            "diff_latency_p99_ms": r["diff_latency_p99_ms"],
+            "post_step_drain_p99_ms": r["post_step_drain_p99_ms"],
+            **{k: r[k] for k in extra}}
+
+
+def _self_tune(result: dict, configs: dict, sweep: dict, esweep: dict,
+               dsweep: dict, device) -> None:
+    """If the short sweeps found a better config, run the headline again at
+    full length there and promote it on throughput, or on paging hygiene
+    (the default pages in steady state, the tuned one clears, at <= 3%
+    throughput cost). Only at the canonical size: ``CELL_SWEEP``'s grids
+    pin the world of 102,400 entities."""
+    if result.get("entities") != CANONICAL_N:
+        raise _SkipSelfTune()
+    cells = {cg: f"cell_{int(cg[0])}" for cg in CELL_SWEEP}
+    head_cfg = (result.get("cell_size"), result.get("grid"),
+                result.get("max_events"), result.get("drain_mode"))
+    best_cell = max(
+        (cg for cg in cells if "updates_per_sec" in sweep.get(cells[cg], {})),
+        key=lambda cg: sweep[cells[cg]]["updates_per_sec"],
+        default=(head_cfg[0], head_cfg[1]))
+    # Budgets whose steady state clears the inline buffer first (a paged
+    # tick pays a second drain round trip), then throughput.
+    best_me = max(
+        (me for me in EVENTS_SWEEP
+         if "updates_per_sec" in esweep.get(f"max_events_{me}", {})),
+        key=lambda me: (
+            esweep[f"max_events_{me}"].get("paged_ticks", 1) == 0,
+            esweep[f"max_events_{me}"]["updates_per_sec"]),
+        default=head_cfg[2])
+    best_dm = max(
+        (dm for dm in DRAIN_SWEEP
+         if "updates_per_sec" in dsweep.get(f"drain_{dm}", {})),
+        key=lambda dm: dsweep[f"drain_{dm}"]["updates_per_sec"],
+        default=head_cfg[3])
+    if (best_cell[0], best_cell[1], best_me, best_dm) == head_cfg:
+        configs["self_tune"] = {"kept": "the default config is the "
+                                        "sweeps' best"}
+        return
+    tuned = bench_aoi(label="aoi_tuned", cell_override=best_cell[0],
+                      grid_override=best_cell[1],
+                      max_events_override=best_me, drain_mode=best_dm,
+                      device=device)
+    tuned["tuned_cell"] = best_cell[0]
+    tuned["tuned_grid"] = best_cell[1]
+    tuned["tuned_max_events"] = best_me
+    tuned["tuned_drain_mode"] = best_dm
+    promote = tuned["value"] > result["value"]
+    if (not promote
+            and not result.get("inline_budget_clears_steady_state", True)
+            and tuned.get("inline_budget_clears_steady_state")
+            and tuned["value"] >= 0.97 * result["value"]):
+        promote = True
+        tuned["promoted_for_paging_hygiene"] = True
+    if promote:
+        configs["default_config_headline"] = {
+            k: result[k] for k in (
+                "value", "ticks_per_sec", "diff_latency_p99_ms",
+                "post_step_drain_p99_ms", "post_step_drain_meets_target",
+                "inline_budget_clears_steady_state")}
+        # The phase profile was measured at the default config: it stays
+        # with those numbers.
+        if "phases" in result:
+            configs["default_config_headline"]["phases"] = result.pop(
+                "phases")
+        for k, v in tuned.items():
+            if k != "metric":
+                result[k] = v
+    else:
+        configs["tuned_not_better"] = {"value": tuned["value"],
+                                       "cell": best_cell[0],
+                                       "max_events": best_me}
+
+
+def _card_configs(result: dict, configs: dict, device) -> None:
+    """The card's part of the ``all`` run: ``synthetic_10k``, ``boids_50k``,
+    the phase profile, the three sweeps at ``BENCH_SWEEP_STEPS`` and the
+    self-tune. Each failure lands in its own entry's ``error``."""
+    try:
+        # BASELINE config 2: 10k random-walk entities on one device.
+        configs["synthetic_10k"] = bench_aoi(n=10240, label="aoi_10k",
+                                             device=device)
+    except Exception:
+        configs["synthetic_10k"] = {"error": _exc_line()}
+    try:
+        configs["boids_50k"] = bench_boids_tuned(device=device)
+    except Exception:
+        configs["boids_50k"] = {"error": _exc_line()}
+    try:
+        result["phases"] = bench_phase_profile(
+            n=result["entities"], cell=result["cell_size"],
+            grid=result["grid"], device=device)
+    except Exception:
+        result["phases"] = {"error": _exc_line()}
+    sweep_steps = int(os.environ.get("BENCH_SWEEP_STEPS", "12"))
+    sweep = {}
+    for cell, grid in CELL_SWEEP:
+        try:
+            r = bench_aoi(label=f"cell{int(cell)}", cell_override=cell,
+                          grid_override=grid, device=device,
+                          steps=sweep_steps)
+            sweep[f"cell_{int(cell)}"] = _sweep_entry(r)
+        except Exception:
+            sweep[f"cell_{int(cell)}"] = {"error": _exc_line()}
+    configs["cell_sweep"] = sweep
+    # The drain's cost scales with max_events.
+    esweep = {}
+    for me in EVENTS_SWEEP:
+        try:
+            r = bench_aoi(label=f"me{me}", max_events_override=me,
+                          device=device, steps=sweep_steps)
+            esweep[f"max_events_{me}"] = _sweep_entry(r, "paged_ticks")
+        except Exception:
+            esweep[f"max_events_{me}"] = {"error": _exc_line()}
+    configs["events_sweep"] = esweep
+    # The drain's word-select strategies: the same events, other gathers.
+    dsweep = {}
+    for dm in DRAIN_SWEEP:
+        try:
+            r = bench_aoi(label=f"drain_{dm}", drain_mode=dm, device=device,
+                          steps=sweep_steps)
+            dsweep[f"drain_{dm}"] = _sweep_entry(r)
+        except Exception:
+            dsweep[f"drain_{dm}"] = {"error": _exc_line()}
+    configs["drain_sweep"] = dsweep
+    try:
+        _self_tune(result, configs, sweep, esweep, dsweep, device)
+    except _SkipSelfTune:
+        configs["self_tune"] = {
+            "skipped": f"BENCH_N != {CANONICAL_N} (sweep grids pin the "
+                       f"canonical world size)"}
+    except Exception:
+        configs["self_tune"] = {"error": _exc_line()}
+
+
+def bench_default(device=None) -> dict:
+    """The default run (no mode flag), by ``BENCH_MODE``: ``aoi``,
+    ``boids``, ``multispace`` or ``all`` (the default). The card's branch
+    runs on the card, or on any device under ``BENCH_REHEARSAL=1``."""
+    mode = os.environ.get("BENCH_MODE", "all")
+    rehearsal = os.environ.get("BENCH_REHEARSAL") == "1"
+    on_card = device is None or _resolve(device).type == "cuda"
+    card_branch = on_card or rehearsal
+    try:
+        if mode == "boids":
+            if not card_branch:
+                result = {
+                    "metric": "boids_agent_updates_per_sec", "value": 0.0,
+                    "unit": "agent-updates/sec", "vs_baseline": 0.0,
+                    "skipped": "requires the card (the CUDA boids kernel)",
+                }
+            else:
+                result = bench_boids_tuned(device=device)
+        elif mode == "aoi":
+            result = bench_aoi(device=device)
+        elif mode == "multispace":
+            result = bench_aoi(space_slots=32, n_spaces=32,
+                               label="aoi_32space", device=device)
+        else:  # all: the headline, then the other BASELINE configs
+            result = bench_aoi(label="aoi", device=device)
+            result["metric"] = "aoi_entity_updates_per_sec_100k"
+            configs: dict = {}
+            try:
+                configs["multispace_32"] = bench_aoi(
+                    n=int(os.environ.get("BENCH_N", str(CANONICAL_N))),
+                    space_slots=32, n_spaces=32, label="aoi_32space",
+                    device=device)
+            except Exception:
+                configs["multispace_32"] = {"error": _exc_line()}
+            configs["unity_200"] = {"covered_by": UNITY_200_COVERED_BY}
+            if card_branch:
+                _card_configs(result, configs, device)
+            else:
+                configs["boids_50k"] = {
+                    "skipped": "requires the card (the CUDA boids kernel)"}
+            configs["pod_1m"] = {"covered_by": POD_1M_COVERED_BY}
+            result["configs"] = configs
+    except Exception:
+        result = {
+            "metric": "aoi_entity_updates_per_sec_100k", "value": 0.0,
+            "unit": "entity-updates/sec", "vs_baseline": 0.0,
+            "error": traceback.format_exc(limit=4),
+        }
+    result["platform"] = "gpu" if on_card else "cpu"
+    if rehearsal:
+        result["rehearsal"] = True
+    return result
+
+
+def headline_of(result: dict) -> dict:
+    """The compact headline the default run prints last."""
+    return {k: result[k] for k in ("metric", "value", "unit", "vs_baseline",
+                                   "platform", "backend", "device", "error")
+            if k in result}
 
 
 def _slo(path):
@@ -276,39 +1123,44 @@ def bench_chaos(slo=None) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        prog="python -m goworld_tpu_torch.bench",
-        description="The port's benchmark: one JSON line on stdout.")
-    ap.add_argument("--scenario", metavar="NAME")
-    ap.add_argument("--scenario-engine", default="batched",
-                    choices=("batched", "sharded"))
-    ap.add_argument("--list-scenarios", action="store_true")
-    ap.add_argument("--chaos", action="store_true")
-    ap.add_argument("--slo-config", metavar="INI")
-    ap.add_argument("--device", choices=("cuda", "cpu"),
-                    help="where the AOI engines run (default: the card)")
-    args = ap.parse_args(argv)
-
+def _run_bench(args) -> int:
     if args.list_scenarios:
         return list_scenarios(args.device)
-    if args.chaos:
-        metric, unit = "chaos_scenarios_passed", "scenarios"
-
-        def run():
-            return bench_chaos(slo=_slo(args.slo_config))
-    elif args.scenario:
+    if args.scenario:
         metric, unit = "scenario_updates_per_sec", "entity-updates/sec"
 
         def run():
             return bench_scenario(
                 args.scenario, args.scenario_engine,
                 slo=_slo(args.slo_config), device=args.device)
-    else:
-        metric, unit = "aoi_entity_updates_per_sec", "entity-updates/sec"
+    elif args.fused:
+        metric, unit = "fused_entity_logic_collapse", "x"
 
         def run():
-            return bench_aoi(device=args.device)
+            return bench_fused(device=args.device)
+    elif args.pinned_floor:
+        metric, unit = "pinned_floor_updates_per_sec", "entity-updates/sec"
+
+        def run():
+            return bench_pinned_floor(device=args.device)
+    elif args.sharded:
+        metric, unit = "sharded_updates_per_sec", "entity-updates/sec"
+
+        def run():
+            return bench_sharded(args.sharded_backend, device=args.device)
+    elif args.chaos:
+        metric, unit = "chaos_scenarios_passed", "scenarios"
+
+        def run():
+            return bench_chaos(slo=_slo(args.slo_config))
+    else:
+        # The default run: the full record, then the compact headline as
+        # the last line (a tail of the output keeps the headline whole).
+        result = bench_default(device=args.device)
+        print(json.dumps(result), flush=True)
+        print(json.dumps(headline_of(result), separators=(",", ":")),
+              flush=True)
+        return 0
     try:
         result = run()
     except Exception:
@@ -320,6 +1172,43 @@ def main(argv=None) -> int:
         # --chaos is a gate: any failure or bot error exits non-zero.
         return 1
     return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m goworld_tpu_torch.bench",
+        description="The port's benchmark: JSON lines on stdout.")
+    ap.add_argument("--sharded", action="store_true")
+    ap.add_argument("--sharded-backend", choices=tuple(SHARDED_CONFIGS),
+                    help="the strip engine's backend (default: kernel on "
+                         "the card, reference on the CPU)")
+    ap.add_argument("--fused", action="store_true")
+    ap.add_argument("--pinned-floor", action="store_true")
+    ap.add_argument("--scenario", metavar="NAME")
+    ap.add_argument("--scenario-engine", default="batched",
+                    choices=("batched", "sharded"))
+    ap.add_argument("--list-scenarios", action="store_true")
+    ap.add_argument("--chaos", action="store_true")
+    ap.add_argument("--history-dir", metavar="DIR",
+                    help="write the run's telemetry ring under DIR/bench")
+    ap.add_argument("--slo-config", metavar="INI")
+    ap.add_argument("--device", choices=("cuda", "cpu"),
+                    help="where the engines run (default: the card)")
+    args = ap.parse_args(argv)
+
+    hist = None
+    if args.history_dir:
+        from goworld_tpu_torch.telemetry import history as history_mod
+
+        hist = history_mod.HistoryWriter(
+            os.path.join(args.history_dir, "bench"), "bench")
+        history_mod.set_active_writer(hist)
+    try:
+        return _run_bench(args)
+    finally:
+        if hist is not None:
+            hist.close()  # the final frame: the whole run's deltas
+            history_mod.clear_active_writer(hist)
 
 
 if __name__ == "__main__":
