@@ -135,7 +135,21 @@ toolkit. It
    single-device engine, no fallback, fewer halo bytes than the
    all-gather's), ``--fused`` (the fused hook never run) and
    ``--pinned-floor`` under ``--history-dir`` (the ring's final frame);
-   the bench's headline printed beside the ``headline`` phase's.
+   the bench's headline printed beside the ``headline`` phase's;
+16. ``bench_cluster_modes``: the bench's cluster modes, a process a mode,
+   each at its fixed config: ``--fanout`` (80 bots, 1 gate) and
+   ``--fanout-multi`` (104 bots, 2 gates) with records delivered and every
+   hop of ``FANOUT_HOPS`` busy; ``--fanout-massive`` (1,008 bots in 4 fleet
+   processes on 2 gates) with no bot error, the tiered bytes a client a
+   second at least 3x below the full phase's, and the reconnect storm's
+   census conserved; ``--trace-overhead`` at each sampling rate, its pinned
+   floor on the card (the kernel backend, the card's name) under
+   ``--history-dir``, whose final frame must count one launch of each mask
+   form a step program; both mask forms held against their plain version
+   and timed at the pinned floor's cells; ``--multigame`` with zero loss and
+   no bot error, its dispatcher-restart phase too; ``--multigame-spaces``
+   passing every kill cross. The games of every cluster mode run ``[aoi]
+   backend = xzlist`` (the host pipeline), as bench.py's do.
 
 Phases that need more cards than the machine has print a line saying they
 did not run; on a machine with four cards (``chiprun --chips 4``) every
@@ -439,6 +453,8 @@ BENCH_PHASES = ("table_ms", "feats_ms", "kernel_ms", "gather_ms",
                 "drain_grouped_ms", "drain_scatter_ms", "full_step_ms",
                 "est_tick_ms")
 BENCH_MODES_TIMEOUT_S = 900
+# bench_cluster_modes: each cluster mode's process is killed past this.
+CLUSTER_MODES_TIMEOUT_S = 420
 BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "backend", "device",
                 "entities", "ticks_per_sec", "events_per_tick",
                 "paged_ticks", "collect_p50_ms", "collect_p99_ms",
@@ -2999,18 +3015,23 @@ def drive_scenarios(tn, ek, device):
     return metrics, rows
 
 
-def run_bench(env_extra: dict, args: list, timeout: float) -> list[str]:
+def run_bench(env_extra: dict, args: list, timeout: float,
+              log: Path | None = None) -> list[str]:
     """``python -m goworld_tpu_torch.bench ARGS`` from the checkout's root,
-    as a user runs it: its stdout lines (a non-zero exit raises)."""
+    as a user runs it: its stdout lines (a non-zero exit raises). The
+    process is killed at ``timeout`` seconds; ``log`` keeps its stderr."""
     import os
 
     root = Path(__file__).resolve().parent
     env = dict(os.environ, **env_extra)
     env["PYTHONPATH"] = str(root)
-    return subprocess.run(
+    r = subprocess.run(
         [sys.executable, "-m", "goworld_tpu_torch.bench", *args], env=env,
-        capture_output=True, text=True, timeout=timeout, check=True,
-        cwd=root).stdout.strip().splitlines()
+        capture_output=True, text=True, timeout=timeout, cwd=root)
+    if log is not None:
+        log.write_text(r.stderr)
+    r.check_returncode()
+    return r.stdout.strip().splitlines()
 
 
 def bench_sweeps() -> dict:
@@ -3190,6 +3211,167 @@ def drive_bench_modes(headline: dict, card: str) -> dict:
     readings["history"] = {"frames": len(frames), "jit_launches_total": steps}
     readings["seconds"] = seconds
     return readings
+
+
+def pinned_floor_kernel_checks(tn, ek, device):
+    """Both mask forms against their plain version at the cells of the
+    pinned floor's first steady tick (``bench_pinned_floor``'s world: its
+    seed, positions and one step of its walk), timed there."""
+    from goworld_tpu_torch.bench import PINNED_FLOOR_CONFIG
+
+    c = PINNED_FLOOR_CONFIG
+    p = tn.NeighborParams(
+        capacity=c["n"], cell_size=c["cell_size"], grid_x=c["grid"],
+        grid_z=c["grid"], space_slots=c["space_slots"],
+        cell_capacity=c["cell_capacity"], max_events=c["max_events"],
+        drain_mode=c["drain_mode"])
+    world = c["grid"] * c["cell_size"]
+    rng = np.random.default_rng(0)
+    ppos = rng.uniform(0, world, (c["n"], 2)).astype(np.float32)
+    vel = rng.normal(0, 3.0, (c["n"], 2)).astype(np.float32)
+    pos = np.clip(ppos + vel, 0.0, world)
+    space = np.zeros(c["n"], np.int32)
+    return kernel_checks(tn, ek, p, pos, ppos, space, device)
+
+
+def hold_fanout(r: dict, clients: int, gates: int, what: str) -> dict:
+    """A fan-out line: records delivered, the fixed shape, every hop busy.
+    Returns its readings."""
+    from goworld_tpu_torch.bench import FANOUT_HOPS
+
+    busy = r.get("hop_busy_ms", {})
+    if r.get("error") or not r.get("value", 0) > 0 \
+            or (r.get("clients"), r.get("gates")) != (clients, gates) \
+            or (r.get("backend"), r.get("device")) != ("xzlist", "cpu") \
+            or not all(busy.get(h, 0) > 0 for h in FANOUT_HOPS):
+        raise AssertionError(f"bench_cluster_modes {what}: {r}")
+    return {k: r[k] for k in ("value", "runs", "clients", "gates",
+                              "hop_busy_ms", "hop_shares", "slab_entities")}
+
+
+def drive_bench_cluster_modes(tn, ek, device, card: str):
+    """bench_cluster_modes: the port bench's cluster modes, each in its own
+    process as a user runs it, at its fixed config. The fan-outs and the
+    multigame runs are the host pipeline (xzlist games); the pinned floor
+    of ``--trace-overhead`` runs the event kernel on the card, under
+    ``--history-dir``, whose final frame counts both mask forms' launches
+    (the wrapper's own counts, one of each a step program). Returns the
+    readings and the mask forms' rows, held and timed at the pinned
+    floor's cells."""
+    import shutil
+
+    from goworld_tpu_torch.bench import (
+        PINNED_FLOOR_CONFIG,
+        TRACE_OVERHEAD_RATES,
+    )
+    from goworld_tpu_torch.telemetry import history
+
+    root = Path(__file__).resolve().parent
+    run_dir = root / "bench_cluster_modes_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir()
+    hist_dir = run_dir / "history"
+    seconds = {}
+
+    def bench(mode, extra=()):
+        t0 = time.perf_counter()
+        lines = run_bench({}, [f"--{mode}", *extra], CLUSTER_MODES_TIMEOUT_S,
+                          log=run_dir / f"{mode}.err")
+        seconds[mode] = time.perf_counter() - t0
+        (run_dir / f"{mode}.out").write_text("\n".join(lines) + "\n")
+        return json.loads(lines[-1])
+
+    readings = {
+        "fanout": hold_fanout(bench("fanout"), 80, 1, "fanout"),
+        "fanout_multi": hold_fanout(bench("fanout-multi"), 104, 2,
+                                    "fanout-multi"),
+    }
+
+    r = bench("fanout-massive")
+    storm = r.get("reconnect_storm", {})
+    if r.get("error") or r.get("clients", 0) < 1000 or r.get("gates", 0) < 2 \
+            or r.get("bot_errors") != 0 or not r.get("value", 0) > 0 \
+            or r["full"]["bytes_per_client_s"] \
+            < 3.0 * r["tiered"]["bytes_per_client_s"] \
+            or storm.get("bot_errors") != 0 \
+            or storm.get("census_clients") != r["clients"]:
+        raise AssertionError(f"bench_cluster_modes fanout-massive: {r}")
+    readings["fanout_massive"] = {k: r[k] for k in (
+        "value", "clients", "gates", "fleets", "edges", "full", "tiered",
+        "bytes_per_client_s", "full_equiv_bytes_per_client_s",
+        "bytes_reduction", "records_reduction", "tier_edges",
+        "reconnect_storm", "bot_errors")}
+
+    r = bench("trace-overhead", ["--history-dir", str(hist_dir)])
+    keys = ["off" if rate == 0 else f"1/{rate}"
+            for rate in TRACE_OVERHEAD_RATES]
+    rates = r.get("rates", {})
+    if r.get("error") or list(rates) != keys \
+            or (r.get("backend"), r.get("device")) != ("kernel", card) \
+            or any((e["backend"], e["device"]) != ("kernel", card)
+                   or not e["fanout"] > 0 or not e["pinned_floor"] > 0
+                   for e in rates.values()):
+        raise AssertionError(f"bench_cluster_modes trace-overhead: {r}")
+    frames, torn = history.read_frames(str(hist_dir / "bench"))
+    final = frames[-1] if frames else {}
+    if torn or final.get("process") != "bench" \
+            or final.get("final") is not True:
+        raise AssertionError(f"bench_cluster_modes: the history ring holds "
+                             f"{len(frames)} frames ({torn} torn)")
+    launches = {labels["form"]: int(n) for labels, n in
+                final["gauges"].get("event_kernel_launches", [])}
+    steps: dict = {}  # counters are deltas a frame
+    for frame in frames:
+        for labels, n in frame["counters"].get("jit_launches_total", []):
+            steps[labels["fn"]] = steps.get(labels["fn"], 0) + n
+    c = PINNED_FLOOR_CONFIG
+    want = len(TRACE_OVERHEAD_RATES) * c["repeats"] * (c["steps"] + 1)
+    # Each step program launches each mask form once (the single form
+    # returning at once on a fast tick).
+    if steps != {"aoi_step_kernel": want} \
+            or any(launches.get(f) != want for f in ek.FORMS):
+        raise AssertionError(f"bench_cluster_modes trace-overhead: "
+                             f"{launches} mask launches and {steps} step "
+                             f"programs, not {want} of each")
+    readings["trace_overhead"] = {
+        "value": r["value"],
+        "full_sampling_cost_pct": r.get("full_sampling_cost_pct"),
+        "rates": {k: {f: e[f] for f in ("pinned_floor", "fanout",
+                                        "fanout_runs")}
+                  for k, e in rates.items()},
+        "event_kernel_launches": launches,
+        "step_programs": steps,
+    }
+
+    r = bench("multigame")
+    restart = r.get("dispatcher_restart_phase", {})
+    if r.get("error") or r.get("zero_loss") is not True \
+            or r.get("bot_errors") != 0 or not r.get("value", 0) > 0 \
+            or restart.get("zero_loss") is not True \
+            or restart.get("bot_errors") != 0:
+        raise AssertionError(f"bench_cluster_modes multigame: {r}")
+    readings["multigame"] = {k: r[k] for k in (
+        "value", "convergence_s", "migrations_done", "census",
+        "skew_initial", "zero_loss", "bot_errors")}
+    readings["multigame"]["dispatcher_restart_phase"] = restart
+
+    r = bench("multigame-spaces")
+    phases = r.get("phases", {})
+    if r.get("error") or len(phases) < 3 or r.get("value") != len(phases):
+        raise AssertionError(f"bench_cluster_modes multigame-spaces: {r}")
+    readings["multigame_spaces"] = {
+        "value": r["value"],
+        "phases": {k: {f: p.get(f) for f in ("recovery_s", "failover_s",
+                                             "zero_loss", "bot_errors")
+                       if f in p}
+                   for k, p in phases.items()},
+    }
+    readings["seconds"] = seconds
+
+    rows = pinned_floor_kernel_checks(tn, ek, device)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    return readings, rows
 
 
 def free_port() -> int:
@@ -4453,6 +4635,15 @@ def main() -> int:
     drive_sync_check(tn, tm, ts, make_mesh, root, device)
     bench_modes = drive_bench_modes(headline, torch.cuda.get_device_name(0))
     print(json.dumps({"bench_modes": bench_modes}), flush=True)
+    cluster_modes, cm_rows = drive_bench_cluster_modes(
+        tn, ek, device, torch.cuda.get_device_name(0))
+    print(json.dumps({"bench_cluster_modes": cluster_modes}), flush=True)
+    for row, crow in zip(kernels, cm_rows):  # the mask forms
+        row["trace_overhead"] = {
+            k: crow[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "max_abs_err", "skipped_ms")
+            if k in crow}
+        row["max_abs_err"] = max(row["max_abs_err"], crow["max_abs_err"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": device_entry()}))

@@ -10,6 +10,9 @@ added.
     python -m goworld_tpu_torch.bench --scenario hotspot [--scenario-engine sharded]
     python -m goworld_tpu_torch.bench --list-scenarios
     python -m goworld_tpu_torch.bench --chaos
+    python -m goworld_tpu_torch.bench --fanout | --fanout-multi | --fanout-massive
+    python -m goworld_tpu_torch.bench --trace-overhead
+    python -m goworld_tpu_torch.bench --multigame | --multigame-spaces
     ... [--history-dir DIR] [--slo-config goworld.ini] [--device cpu]
 
 - no mode: the default run, ``BENCH_MODE=aoi|boids|multispace|all``
@@ -54,17 +57,37 @@ added.
 - ``--chaos``: the chaos suite over the port's in-process cluster, once a
   transport (tcp, then uds), plus the migration-during-restart phase on the
   two-game cluster. A gate: any failure or bot error exits 1.
+- ``--fanout``: delivered sync records/s of an in-process cluster (one
+  dispatcher, one game, one gate, 80 bot sockets whose avatars all see each
+  other, a sync every 5 ms), best of 3 windows, with each hop's busy time
+  and share (``FANOUT_HOPS``). ``--fanout-multi``: 104 bots on 2 gates.
+  ``BENCH_TRACE_SAMPLE_RATE`` overrides the cluster's trace sampling.
+- ``--fanout-massive``: 1,008 bot sockets in 4 fleet processes
+  (``python -m goworld_tpu_torch.chaos.botfleet``) on 2 gates; records/s
+  and bytes a client a second at full rate, then with cadence tiers and
+  quantized deltas (the value), then a gate kill and reconnect storm judged
+  by the collector's census.
+- ``--trace-overhead``: at each rate of ``TRACE_OVERHEAD_RATES`` (off,
+  1/1024, 1/1), the pinned floor on ``--device`` (the card by default) and
+  the fan-out; the value is the fan-out with tracing off.
+- ``--multigame``: rebalance convergence (entities moved a second) on two
+  game processes, then migration across a dispatcher restart.
+  ``--multigame-spaces``: whole-space migration under three kill crosses;
+  the value is the crosses passed.
 - ``--history-dir <dir>``: the run's own black box: a ``HistoryWriter``
-  ring under ``<dir>/bench`` whose final frame carries the run's telemetry.
+  ring under ``<dir>/bench`` whose final frame carries the run's telemetry,
+  the event kernel's launches by form among it.
 - ``--slo-config <ini>``: the ``[slo]`` budgets that ``--scenario`` and
   ``--chaos`` are judged against.
 
 Everything runs on the CUDA card unless ``--device cpu`` is given; without
 a card a mode fails in its JSON line's ``error`` (it never falls back to the
-CPU). The exit code is 0 but for ``--chaos``. The chaos cluster's games run
-``[aoi] backend = xzlist`` and never touch the card. The root bench's
-cluster modes (fanout, trace overhead, multigame) and its floors are not
-ported yet (ROADMAP).
+CPU). The exit code is 0 but for ``--chaos``. The cluster modes' games
+(``--chaos``, the fan-outs, ``--multigame*`` and the fan-out half of
+``--trace-overhead``) run ``[aoi] backend = xzlist``, as the root bench's
+do: they measure the host pipeline, never touch the card and need none;
+their lines say ``backend: xzlist``, ``device: cpu``. The port has no
+floors file: ``floor_file`` is null and nothing is compared.
 """
 
 from __future__ import annotations
@@ -1056,6 +1079,767 @@ def list_scenarios(device) -> int:
     return 0
 
 
+# --- the cluster modes: fan-out, trace overhead, multigame -------------------
+
+# The fan-out mode: a real in-process cluster (dispatcher, game, gates over
+# localhost TCP) with N bot sockets whose avatars share one AOI space, so
+# every position change fans out to every other bot's client. It measures
+# the host half of the sync pipeline end to end: the slab flag scan, the
+# per-gate record pack, dispatcher routing, the gate's demux, the coalesced
+# client writes. The game runs [aoi] backend = xzlist, as bench.py's does:
+# no engine, no card. 80 bots at 5 ms offer ~1.26 M records/s, so the loop
+# saturates and the number is capacity.
+FANOUT_CONFIG = {
+    "bots": 80, "gates": 1, "sync_interval": 0.005, "measure_s": 2.0,
+    "windows": 3, "aoi_distance": 100.0,
+}
+# The multi-gate variant: 2 gates x 52 bots, so the game packs one buffer a
+# gate and each gate demuxes its own stream.
+FANOUT_MULTI_CONFIG = {
+    "bots": 104, "gates": 2, "sync_interval": 0.005, "measure_s": 2.0,
+    "windows": 2, "aoi_distance": 400.0,
+}
+
+# The fan-out pipeline's hops, as the game, dispatcher and gate services
+# count them in fanout_hop_seconds_total{hop}.
+FANOUT_HOPS = ("game_collect", "game_pack", "game_send",
+               "dispatcher_route", "gate_demux", "client_write")
+
+# The repo's root: the bot fleets and the fresh bench processes run from it.
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _hop_seconds() -> dict[str, float]:
+    from goworld_tpu_torch import telemetry
+
+    fam = telemetry.counter(
+        "fanout_hop_seconds_total", "", ("hop",))
+    return {h: fam.labels(h).value for h in FANOUT_HOPS}
+
+
+def bench_fanout(trace_sample_rate: int | None = None,
+                 config: dict | None = None) -> dict:
+    """``--fanout``: delivered sync records/s at ``FANOUT_CONFIG``, best of
+    ``windows`` measurement windows over one live cluster.
+    ``trace_sample_rate`` overrides [telemetry] trace_sample_rate for the
+    cluster (None keeps the default 1/1024, or ``BENCH_TRACE_SAMPLE_RATE``);
+    ``config`` selects another fixed shape (``FANOUT_MULTI_CONFIG``).
+
+    The line carries ``hop_busy_ms`` and ``hop_shares``: the busy wall time
+    of each pipeline stage over the windows and its share, so a regression
+    names its hop."""
+    import asyncio
+    import tempfile
+
+    c = config or FANOUT_CONFIG
+    if trace_sample_rate is None and "BENCH_TRACE_SAMPLE_RATE" in os.environ:
+        trace_sample_rate = int(os.environ["BENCH_TRACE_SAMPLE_RATE"])
+
+    async def run() -> tuple[list[float], dict]:
+        from goworld_tpu_torch.config.read_config import (
+            AOIConfig,
+            DeploymentConfig,
+            DispatcherConfig,
+            GameConfig,
+            GateConfig,
+            GoWorldConfig,
+            KVDBConfig,
+            StorageConfig,
+            TelemetryConfig,
+        )
+        from goworld_tpu_torch.dispatcher import DispatcherService
+        from goworld_tpu_torch.entity import entity_manager as em
+        from goworld_tpu_torch.entity.entity import Entity
+        from goworld_tpu_torch.entity.space import Space
+        from goworld_tpu_torch.entity.vector import Vector3
+        from goworld_tpu_torch.game import GameService
+        from goworld_tpu_torch.gate import GateService
+        from goworld_tpu_torch.netutil.packet_conn import (
+            ConnectionClosed,
+            PacketConnection,
+        )
+        from goworld_tpu_torch.proto.conn import (
+            SYNC_RECORD_SIZE,
+            GoWorldConnection,
+        )
+        from goworld_tpu_torch.proto.msgtypes import MsgType
+
+        n_bots = c["bots"]
+        n_gates = c.get("gates", 1)
+        holder: dict = {"arena": None, "joined": 0}
+
+        class FanSpace(Space):
+            def on_space_created(self):
+                if self.kind == 1:
+                    self.enable_aoi(c["aoi_distance"])
+                    holder["arena"] = self
+
+        class FanAvatar(Entity):
+            # One on_tick_batch call a game tick jitters every avatar's x in
+            # one vectorized write; the cadence accumulator and the jitter
+            # phase are Column attrs, so the fan-out rides the columnar
+            # read/write path.
+
+            @classmethod
+            def describe_entity_type(cls, desc):
+                desc.set_use_aoi(True, c["aoi_distance"])
+                desc.define_attr("accum", "Column")
+                desc.define_attr("phase", "Column")
+
+            def on_client_connected(self):
+                arena = holder["arena"]
+                if arena is not None:
+                    # Clustered well inside one AOI radius (full N x N
+                    # interest); the spacing shrinks past 30 bots so the
+                    # whole line still fits the radius.
+                    gap = min(3.0, 90.0 / max(1, n_bots))
+                    x = gap * holder["joined"]
+                    holder["joined"] += 1
+                    self.enter_space(arena.id, Vector3(x, 0.0, 10.0))
+
+            @classmethod
+            def on_tick_batch(cls, view):
+                # Every avatar shares the tick's dt, so all cross the
+                # cadence together.
+                accum = view.col("accum") + view.dt
+                if accum.max(initial=0.0) < c["sync_interval"]:
+                    view.set_col("accum", accum)
+                    return
+                # Carry the residual (capped), so a late loop iteration
+                # does not stretch the average cadence.
+                view.set_col(
+                    "accum",
+                    np.minimum(accum - c["sync_interval"],
+                               c["sync_interval"]))
+                phase = 1.0 - view.col("phase")
+                view.set_col("phase", phase)
+                # Half a unit in place on odd phases: never leaving the
+                # shared neighborhood.
+                view.set_position_yaw(x=np.floor(view.x) + 0.5 * phase)
+
+        class Bot:
+            def __init__(self) -> None:
+                self.records = 0
+                self.task = None
+                self.conn = None
+
+            async def pump(self, host: str, port: int) -> None:
+                reader, writer = await asyncio.open_connection(host, port)
+                self.conn = GoWorldConnection(PacketConnection(reader, writer))
+                try:
+                    while True:
+                        msgtype, packet = await self.conn.recv()
+                        if msgtype == MsgType.SYNC_POSITION_YAW_ON_CLIENTS:
+                            self.records += (
+                                len(packet.payload) // SYNC_RECORD_SIZE
+                            )
+                except (ConnectionClosed, asyncio.CancelledError):
+                    pass
+
+        em.cleanup_for_tests()
+        tmp = tempfile.TemporaryDirectory(prefix="bench_fanout_")
+        bots = [Bot() for _ in range(n_bots)]
+        disp = game = game_task = None
+        gates: list = []
+        try:
+            em.register_space(FanSpace)
+            em.register_entity(FanAvatar)
+            disp = DispatcherService(1, desired_games=1,
+                                     desired_gates=n_gates)
+            await disp.start()
+            cfg = GoWorldConfig()
+            cfg.deployment = DeploymentConfig(
+                desired_games=1, desired_gates=n_gates,
+                desired_dispatchers=1)
+            cfg.dispatchers = {1: DispatcherConfig(port=disp.port)}
+            cfg.games = {1: GameConfig(
+                boot_entity="FanAvatar", save_interval=0.0,
+                position_sync_interval=c["sync_interval"])}
+            cfg.gates = {
+                g: GateConfig(
+                    port=0, position_sync_interval=c["sync_interval"],
+                    heartbeat_timeout=0.0)
+                for g in range(1, n_gates + 1)
+            }
+            cfg.aoi = AOIConfig(backend="xzlist")  # the host pipeline only
+            cfg.storage = StorageConfig(
+                type="filesystem", directory=tmp.name + "/es")
+            cfg.kvdb = KVDBConfig(
+                type="filesystem", directory=tmp.name + "/kv")
+            if trace_sample_rate is not None:
+                cfg.telemetry = TelemetryConfig(
+                    trace_sample_rate=trace_sample_rate)
+            game = GameService(1, cfg, restore=False)
+            game_task = asyncio.get_running_loop().create_task(
+                game.run_async())
+            for g in range(1, n_gates + 1):
+                gate = GateService(g, cfg)
+                await gate.start()
+                gates.append(gate)
+            for _ in range(1000):
+                if game.deployment_ready:
+                    break
+                await asyncio.sleep(0.01)
+            assert game.deployment_ready, "cluster never became ready"
+            em.create_space_locally(1)
+            assert holder["arena"] is not None
+            for i, b in enumerate(bots):
+                b.task = asyncio.get_running_loop().create_task(
+                    b.pump("127.0.0.1", gates[i % n_gates].port))
+
+            # Full mutual interest: the steady-state fan-out world.
+            def satur():
+                avs = [e for e in em.entities().values()
+                       if e.typename == "FanAvatar" and e.client is not None]
+                return (len(avs) == n_bots and all(
+                    len(a.interested_by) == n_bots - 1 for a in avs))
+            for _ in range(2000):
+                if satur():
+                    break
+                await asyncio.sleep(0.01)
+            assert satur(), "bots never reached full mutual AOI interest"
+            slab_entities = em.runtime.slabs.used
+            rates = []
+            await asyncio.sleep(0.5)  # settle: first packets in flight
+            hops0 = _hop_seconds()
+            for _ in range(c["windows"]):
+                base = sum(b.records for b in bots)
+                t0 = time.perf_counter()
+                await asyncio.sleep(c["measure_s"])
+                dt = time.perf_counter() - t0
+                rates.append(
+                    (sum(b.records for b in bots) - base) / dt)
+            hops1 = _hop_seconds()
+            hop_ms = {h: round((hops1[h] - hops0[h]) * 1000.0, 2)
+                      for h in FANOUT_HOPS}
+            total = sum(hop_ms.values()) or 1.0
+            hops = {
+                "hop_busy_ms": hop_ms,
+                "hop_shares": {h: round(v / total, 3)
+                               for h, v in hop_ms.items()},
+                # The sync path measured: the columnar collect over this
+                # many live slab slots.
+                "sync_path": "slab",
+                "slab_entities": int(slab_entities),
+            }
+            return rates, hops
+        finally:
+            for b in bots:
+                if b.task is not None:
+                    b.task.cancel()
+                if b.conn is not None:
+                    b.conn.close()
+            for gate in gates:
+                await gate.stop()
+            if game is not None:
+                game.terminate()
+                try:
+                    await asyncio.wait_for(game_task, timeout=10)
+                except Exception:
+                    pass
+            if disp is not None:
+                await disp.stop()
+            from goworld_tpu_torch import kvdb, storage
+
+            storage.set_backend(None)
+            kvdb.set_backend(None)
+            em.cleanup_for_tests()
+            tmp.cleanup()
+
+    retraces0 = _steady_state_retraces()
+    rates, hops = asyncio.run(run())
+    out = {
+        "metric": ("fanout_sync_records_per_sec"
+                   if c.get("gates", 1) == 1
+                   else "fanout_multi_sync_records_per_sec"),
+        "value": round(max(rates), 1),
+        "unit": "sync-records/sec",
+        "runs": [round(r, 1) for r in rates],
+        # How many real client sockets, across how many gates, the number
+        # serves.
+        "clients": c["bots"],
+        "gates": c.get("gates", 1),
+        "config": dict(c),
+        "platform": "cpu",
+        "backend": "xzlist",
+        "device": "cpu",
+        "steady_state_retraces": _steady_state_retraces() - retraces0,
+        "floor_file": None,
+    }
+    out.update(hops)
+    return out
+
+
+def _fanout_tier1_env(flag: str = "--fanout", timeout: float = 600) -> dict:
+    """``python -m goworld_tpu_torch.bench <flag>`` in a fresh process: the
+    mode reads process-global counters and the entity manager, which a run
+    before it in the same interpreter would leak into. The process is
+    killed at ``timeout`` seconds. Returns the mode's JSON line."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    r = subprocess.run(
+        [sys.executable, "-m", "goworld_tpu_torch.bench", flag],
+        capture_output=True, text=True, env=env, timeout=timeout,
+        check=True, cwd=_REPO,
+    )
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def bench_fanout_multi() -> dict:
+    """``--fanout-multi``: the 2-gate x 104-bot fan-out
+    (``FANOUT_MULTI_CONFIG``)."""
+    return bench_fanout(config=FANOUT_MULTI_CONFIG)
+
+
+# The massive fan-out: 1,008 real client sockets, 4 bot-fleet subprocesses of
+# 252 bots (chaos/botfleet.py) across 2 in-process gates, one dispatcher, one
+# game, one AOI space. Avatars sit on a 42 x 24 grid at 55-unit spacing with
+# a 100-unit radius: an interior avatar watches 8 neighbors (4 at 55 units
+# in the middle cadence tier, 4 at 77.8 in the far tier), and every avatar
+# jitters in lockstep each sync interval, so tiers never reclassify. Two
+# phases over the same cluster and movement: "full" (full rate and
+# precision), then "tiered" (cadence tiers and quantized deltas, the value).
+# Then a gate kill and reconnect storm: gate 2 stops, its 504 clients re-dial
+# gate 1, judged by the collector's census (1,008 conserved, no alert) and
+# the fleets' strict decode (no delta before its keyframe).
+FANOUT_MASSIVE_CONFIG = {
+    "bots": 1008, "gates": 2, "fleets": 4, "cols": 42,
+    "spacing": 55.0, "aoi_distance": 100.0, "sync_interval": 0.1,
+    "measure_s": 4.0, "windows": 2, "settle_s": 2.0,
+    "tier_cadences": (1, 8, 32), "quantize_bits": 7,
+    "keyframe_interval": 64, "near_ratio": 0.5, "far_ratio": 0.8,
+    "storm": True,
+}
+
+
+def bench_fanout_massive() -> dict:
+    """``--fanout-massive``: delivered records/s of the tiered phase at
+    ``FANOUT_MASSIVE_CONFIG``, with both phases' records/s and bytes a
+    client a second, their ratio, and the reconnect storm's recovery."""
+    import asyncio
+    import tempfile
+
+    c = FANOUT_MASSIVE_CONFIG
+
+    async def run() -> dict:
+        from goworld_tpu_torch.config.read_config import (
+            AOIConfig,
+            DeploymentConfig,
+            DispatcherConfig,
+            GameConfig,
+            GateConfig,
+            GoWorldConfig,
+            KVDBConfig,
+            StorageConfig,
+        )
+        from goworld_tpu_torch.dispatcher import DispatcherService
+        from goworld_tpu_torch.entity import entity_manager as em
+        from goworld_tpu_torch.entity.entity import Entity
+        from goworld_tpu_torch.entity.slabs import SyncTuning
+        from goworld_tpu_torch.entity.space import Space
+        from goworld_tpu_torch.entity.vector import Vector3
+        from goworld_tpu_torch.game import GameService
+        from goworld_tpu_torch.gate import GateService
+
+        n_bots = c["bots"]
+        n_gates = c["gates"]
+        holder: dict = {"arena": None, "joined": 0, "move": False}
+
+        class MassSpace(Space):
+            def on_space_created(self):
+                if self.kind == 1:
+                    self.enable_aoi(c["aoi_distance"])
+                    holder["arena"] = self
+
+        class MassAvatar(Entity):
+            @classmethod
+            def describe_entity_type(cls, desc):
+                desc.set_use_aoi(True, c["aoi_distance"])
+                desc.define_attr("accum", "Column")
+                desc.define_attr("phase", "Column")
+
+            def on_client_connected(self):
+                arena = holder["arena"]
+                if arena is not None:
+                    i = holder["joined"]
+                    holder["joined"] += 1
+                    x = c["spacing"] * (i % c["cols"])
+                    z = c["spacing"] * (i // c["cols"])
+                    self.enter_space(arena.id, Vector3(x, 0.0, z))
+
+            def on_client_disconnected(self):
+                # An orphaned boot avatar dies, so the census re-converges
+                # at the bot count after the storm.
+                self.destroy()
+
+            @classmethod
+            def on_tick_batch(cls, view):
+                if not holder["move"]:
+                    return
+                accum = view.col("accum") + view.dt
+                if accum.max(initial=0.0) < c["sync_interval"]:
+                    view.set_col("accum", accum)
+                    return
+                view.set_col(
+                    "accum",
+                    np.minimum(accum - c["sync_interval"],
+                               c["sync_interval"]))
+                phase = 1.0 - view.col("phase")
+                view.set_col("phase", phase)
+                # Lockstep: every x moves by the same half unit each beat,
+                # so pairwise distances and tiers stay fixed.
+                view.set_position_yaw(x=np.floor(view.x) + 0.5 * phase)
+
+        async def fleet_spawn(ports: list[int], bots: int):
+            # One torch thread a fleet: four fleets share the host with the
+            # cluster.
+            return await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "goworld_tpu_torch.chaos.botfleet",
+                "--gates", ",".join(str(p) for p in ports),
+                "--bots", str(bots), "--stagger-ms", "3",
+                stdin=asyncio.subprocess.PIPE,
+                stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.DEVNULL,
+                cwd=_REPO,
+                env=dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1"),
+            )
+
+        async def fleet_read(proc) -> dict:
+            line = await asyncio.wait_for(proc.stdout.readline(), 60)
+            if not line:
+                raise RuntimeError("bot fleet died (empty stdout)")
+            return json.loads(line)
+
+        async def fleet_cmd(proc, cmd: str) -> dict:
+            proc.stdin.write(
+                (json.dumps({"cmd": cmd}) + "\n").encode())
+            await proc.stdin.drain()
+            return await fleet_read(proc)
+
+        async def fleets_report(procs) -> dict:
+            reports = []
+            for p in procs:
+                reports.append(await fleet_cmd(p, "report"))
+            return {
+                k: sum(r[k] for r in reports)
+                for k in ("bots", "alive", "players", "entities",
+                          "keyframes", "deltas", "records",
+                          "sync_bytes", "sync_packets", "errors")
+            } | {"error_samples": [s for r in reports
+                                   for s in r["error_samples"]][:5]}
+
+        async def measure(procs, seconds: float, windows: int) -> dict:
+            best = None
+            for _ in range(windows):
+                a = await fleets_report(procs)
+                t0 = time.perf_counter()
+                await asyncio.sleep(seconds)
+                dt = time.perf_counter() - t0
+                b = await fleets_report(procs)
+                w = {
+                    "records_per_s": (b["records"] - a["records"]) / dt,
+                    "keyframes_per_s":
+                        (b["keyframes"] - a["keyframes"]) / dt,
+                    "deltas_per_s": (b["deltas"] - a["deltas"]) / dt,
+                    "bytes_per_client_s":
+                        (b["sync_bytes"] - a["sync_bytes"]) / dt / n_bots,
+                }
+                if best is None or w["records_per_s"] > best["records_per_s"]:
+                    best = w
+                best["errors"] = b["errors"]
+            return {k: round(v, 1) for k, v in best.items()}
+
+        em.cleanup_for_tests()
+        tmp = tempfile.TemporaryDirectory(prefix="bench_massive_")
+        disp = game = game_task = None
+        gates: list = []
+        procs: list = []
+        try:
+            em.register_space(MassSpace)
+            em.register_entity(MassAvatar)
+            disp = DispatcherService(1, desired_games=1,
+                                     desired_gates=n_gates)
+            await disp.start()
+            cfg = GoWorldConfig()
+            cfg.deployment = DeploymentConfig(
+                desired_games=1, desired_gates=n_gates,
+                desired_dispatchers=1)
+            cfg.dispatchers = {1: DispatcherConfig(port=disp.port)}
+            cfg.games = {1: GameConfig(
+                boot_entity="MassAvatar", save_interval=0.0,
+                position_sync_interval=c["sync_interval"])}
+            cfg.gates = {
+                g: GateConfig(port=0, heartbeat_timeout=0.0)
+                for g in range(1, n_gates + 1)
+            }
+            cfg.aoi = AOIConfig(backend="xzlist")  # the host pipeline only
+            cfg.storage = StorageConfig(
+                type="filesystem", directory=tmp.name + "/es")
+            cfg.kvdb = KVDBConfig(
+                type="filesystem", directory=tmp.name + "/kv")
+            game = GameService(1, cfg, restore=False)
+            game_task = asyncio.get_running_loop().create_task(
+                game.run_async())
+            for g in range(1, n_gates + 1):
+                gate = GateService(g, cfg)
+                await gate.start()
+                gates.append(gate)
+            for _ in range(1000):
+                if game.deployment_ready:
+                    break
+                await asyncio.sleep(0.01)
+            assert game.deployment_ready, "cluster never became ready"
+            em.create_space_locally(1)
+            assert holder["arena"] is not None
+
+            ports = [g.port for g in gates]
+            per_fleet = n_bots // c["fleets"]
+            assert per_fleet * c["fleets"] == n_bots
+            for _ in range(c["fleets"]):
+                procs.append(await fleet_spawn(ports, per_fleet))
+            for p in procs:
+                ready = await asyncio.wait_for(fleet_read(p), 180)
+                assert ready.get("ready") == per_fleet, ready
+            # Boot convergence: every bot owns a player and the interest
+            # graph's edge count held for a second.
+            slabs = em.runtime.slabs
+            stable_since = None
+            last_edges = -1
+            deadline = time.monotonic() + 180
+            while time.monotonic() < deadline:
+                r = await fleets_report(procs)
+                edges = slabs.edge_count()
+                if r["players"] == n_bots and edges == last_edges:
+                    if stable_since is None:
+                        stable_since = time.monotonic()
+                    elif time.monotonic() - stable_since > 1.0:
+                        break
+                else:
+                    stable_since = None
+                last_edges = edges
+                await asyncio.sleep(0.25)
+            else:
+                raise AssertionError(
+                    f"massive boot never converged: {r} edges={last_edges}")
+            out: dict = {
+                "clients": n_bots,
+                "gates": n_gates,
+                "fleets": c["fleets"],
+                "edges": int(slabs.edge_count()),
+                "entities": len(em.entities()) - 1,  # minus the space
+            }
+
+            # Phase 1: full rate and full precision.
+            slabs.configure_sync(SyncTuning())
+            holder["move"] = True
+            await asyncio.sleep(c["settle_s"])
+            out["full"] = await measure(
+                procs, c["measure_s"], c["windows"])
+            # Phase 2: cadence tiers and quantized deltas; the baselines
+            # re-establish through one keyframe wave.
+            slabs.configure_sync(SyncTuning(
+                tier_cadences=c["tier_cadences"],
+                quantize_bits=c["quantize_bits"],
+                keyframe_interval=c["keyframe_interval"],
+                near_ratio=c["near_ratio"], far_ratio=c["far_ratio"],
+            ))
+            await asyncio.sleep(c["settle_s"])
+            out["tiered"] = await measure(
+                procs, c["measure_s"], c["windows"])
+            fb = out["full"]["bytes_per_client_s"]
+            tb = out["tiered"]["bytes_per_client_s"]
+            out["bytes_per_client_s"] = tb
+            out["full_equiv_bytes_per_client_s"] = fb
+            out["bytes_reduction"] = round(fb / max(tb, 1e-9), 2)
+            out["records_reduction"] = round(
+                out["full"]["records_per_s"]
+                / max(out["tiered"]["records_per_s"], 1e-9), 2)
+            out["tier_edges"] = {
+                str(t): int(n) for t, n in enumerate(
+                    np.bincount(
+                        slabs._e_tier[:slabs.edge_count()],
+                        minlength=len(c["tier_cadences"])).tolist())
+            }
+
+            if c.get("storm"):
+                # Movement stays on through the storm: reconnected clients
+                # must decode the live stream, keyframes first.
+                out["reconnect_storm"] = await _massive_storm(
+                    c, disp, game, gates, procs, fleets_report, fleet_cmd,
+                    n_bots)
+            holder["move"] = False
+            r = await fleets_report(procs)
+            out["bot_errors"] = r["errors"]
+            out["bot_error_samples"] = r["error_samples"]
+            return out
+        finally:
+            for p in procs:
+                try:
+                    p.stdin.close()
+                except Exception:
+                    pass
+            for p in procs:
+                try:
+                    await asyncio.wait_for(p.wait(), 10)
+                except Exception:
+                    p.kill()
+            for gate in gates:
+                try:
+                    await gate.stop()
+                except Exception:
+                    pass
+            if game is not None:
+                game.terminate()
+                try:
+                    await asyncio.wait_for(game_task, timeout=15)
+                except Exception:
+                    pass
+            if disp is not None:
+                await disp.stop()
+            from goworld_tpu_torch import kvdb, storage
+
+            storage.set_backend(None)
+            kvdb.set_backend(None)
+            em.cleanup_for_tests()
+            tmp.cleanup()
+
+    retraces0 = _steady_state_retraces()
+    result = asyncio.run(run())
+    out = {
+        "metric": "fanout_massive_sync_records_per_sec",
+        "value": result["tiered"]["records_per_s"],
+        "unit": "sync-records/sec",
+        "runs": [result["tiered"]["records_per_s"]],
+        "config": {k: list(v) if isinstance(v, tuple) else v
+                   for k, v in c.items()},
+        "platform": "cpu",
+        "backend": "xzlist",
+        "device": "cpu",
+        "steady_state_retraces": _steady_state_retraces() - retraces0,
+        "floor_file": None,
+    }
+    out.update(result)
+    return out
+
+
+async def _massive_storm(c, disp, game, gates, procs, fleets_report,
+                         fleet_cmd, n_bots: int) -> dict:
+    """Gate kill and reconnect storm at the massive client count, judged by
+    an in-process ``ClusterCollector`` over the live services: stop gate 2,
+    re-dial its clients against gate 1, then poll until every surviving
+    process reports, the client census is conserved at the bot count and
+    no alert remains. The fleets' strict decode counts a delta before its
+    keyframe as a bot error (zero required)."""
+    import asyncio
+
+    from goworld_tpu_torch.telemetry.collector import ClusterCollector
+
+    t0 = time.monotonic()
+    errors_before = (await fleets_report(procs))["errors"]
+    await gates[1].stop()
+    del gates[1]
+    # Every dead bot walks the gate list and lands on the survivor.
+    reconnected = 0
+    for p in procs:
+        r = await fleet_cmd(p, "reconnect_dead")
+        reconnected += r["reconnected"]
+        assert r["failed"] == 0, r
+
+    def targets():
+        async def disp_fetch() -> dict:
+            return {"health": disp._health(), "metrics": {}}
+
+        async def game_fetch() -> dict:
+            return {"health": game._health(), "metrics": {}}
+
+        async def gate_fetch() -> dict:
+            return {"health": gates[0]._health(), "metrics": {}}
+
+        return [("dispatcher1", disp_fetch), ("game1", game_fetch),
+                ("gate1", gate_fetch)]
+
+    coll = ClusterCollector(targets(), interval=0.05)
+    deadline = time.monotonic() + 60
+    last = None
+    converged = None
+    while time.monotonic() < deadline:
+        await coll.poll_once()
+        summary = coll.view()["summary"]
+        census = summary["census"]
+        r = await fleets_report(procs)
+        if (summary["reporting"] == summary["expected"]
+                and not summary["alerts"]
+                and census["clients_conserved"]
+                and census["gate_clients"] == n_bots
+                and r["players"] == n_bots):
+            converged = time.monotonic() - t0
+            break
+        last = summary
+        await asyncio.sleep(0.2)
+    if converged is None:
+        raise AssertionError(
+            f"massive reconnect storm never converged: {last}")
+    # Movement after the storm: reconnected clients must decode cleanly.
+    await asyncio.sleep(max(1.0, 10 * c["sync_interval"]))
+    r = await fleets_report(procs)
+    return {
+        "reconnected": reconnected,
+        "converge_s": round(converged, 3),
+        "bot_errors": r["errors"] - errors_before,
+        "census_clients": census["gate_clients"],  # the collector's count
+    }
+
+
+# Sampling denominators swept by --trace-overhead: off, the production
+# default and trace-everything.
+TRACE_OVERHEAD_RATES = (0, 1024, 1)
+
+
+def bench_trace_overhead(device=None) -> dict:
+    """``--trace-overhead``: the pinned floor and the fan-out at each
+    sampling rate. The pinned floor is the AOI engine's loop on ``device``
+    (the card by default), where tracing is absent: the control. The
+    fan-out runs the packet path where the trace branch, the trailer and
+    the span recording live. The value is the fan-out with tracing off.
+    The caller's sampling rate is restored after."""
+    from goworld_tpu_torch.telemetry import tracing
+
+    dev = _resolve(device)
+    out: dict = {
+        "metric": "trace_overhead_sync_records_per_sec",
+        "unit": "sync-records/sec",
+        "rates": {},
+        "platform": _platform(dev),
+        "floor_file": None,
+    }
+    saved = tracing.sample_rate()
+    try:
+        for rate in TRACE_OVERHEAD_RATES:
+            key = "off" if rate == 0 else f"1/{rate}"
+            tracing.configure(sample_rate=rate)
+            pinned = bench_pinned_floor(device=dev)
+            fan = bench_fanout(trace_sample_rate=rate)
+            out["rates"][key] = {
+                "sample_rate": rate,
+                "pinned_floor": pinned["value"],
+                "fanout": fan["value"],
+                "fanout_runs": fan["runs"],
+                "backend": pinned["backend"],
+                "device": pinned["device"],
+            }
+            out["backend"] = pinned["backend"]
+            out["device"] = pinned["device"]
+    finally:
+        tracing.configure(sample_rate=saved)
+    off = out["rates"].get("off", {}).get("fanout", 0.0)
+    out["value"] = off  # the headline: the point that must be free
+    full = out["rates"].get("1/1", {}).get("fanout", 0.0)
+    if off:
+        out["full_sampling_cost_pct"] = round(100.0 * (1.0 - full / off), 1)
+    return out
+
+
 def bench_chaos(slo=None) -> dict:
     """The chaos suite (``--chaos``): every scenario of ``run_chaos`` on the
     port's in-process cluster, then migrate-during-dispatcher-restart on
@@ -1123,6 +1907,107 @@ def bench_chaos(slo=None) -> dict:
     return out
 
 
+# The live-rebalance run: 2 game subprocesses, 2 in-parent dispatchers, 1
+# gate, 12 strict bots, xzlist AOI, every avatar booted onto game1 (game2 is
+# boot-banned). The value is rebalance throughput: entities moved per second
+# of convergence. The same run then migrates across a dispatcher restart
+# (zero loss required).
+MULTIGAME_CONFIG = {
+    "bots": 12, "games": 2, "dispatchers": 2, "transport": "tcp",
+}
+
+
+def bench_multigame() -> dict:
+    """``--multigame``: rebalance convergence on the 2-game cluster at
+    ``MULTIGAME_CONFIG``, with the dispatcher-restart phase."""
+    import tempfile
+
+    from goworld_tpu_torch.chaos.multigame import run_multigame
+
+    c = MULTIGAME_CONFIG
+    with tempfile.TemporaryDirectory(prefix="bench_multigame_") as d:
+        r = run_multigame(d, n_bots=c["bots"], transport=c["transport"],
+                          with_restart_phase=True)
+    value = r["migrations_done"] / max(r["convergence_s"], 1e-9)
+    out = {
+        "metric": "multigame_rebalance_entities_per_sec",
+        "value": round(value, 2),
+        "unit": "entities/sec",
+        "runs": [round(value, 2)],
+        "config": dict(c),
+        "platform": "cpu",
+        "backend": "xzlist",
+        "device": "cpu",
+        "floor_file": None,
+    }
+    out.update(r)
+    return out
+
+
+# The whole-space migration chaos run: 3 game subprocesses, the receivers
+# booted without an arena (the planner can only move whole spaces), the
+# planner in the sharded RebalancePlannerService, and three kill crosses:
+# the receiver mid-PREPARE, the donor mid-COMMIT, the planner's host. The
+# value is the crosses passed.
+MULTIGAME_SPACES_CONFIG = {
+    "bots": 12, "games": 3, "dispatchers": 2, "transport": "tcp",
+}
+
+
+def bench_multigame_spaces() -> dict:
+    """``--multigame-spaces``: the whole-space migration chaos run at
+    ``MULTIGAME_SPACES_CONFIG``; a cross passes with zero loss and no bot
+    error."""
+    import tempfile
+
+    from goworld_tpu_torch.chaos.multigame import run_multigame_spaces
+
+    c = MULTIGAME_SPACES_CONFIG
+    with tempfile.TemporaryDirectory(prefix="bench_multigame_sp_") as d:
+        r = run_multigame_spaces(d, n_bots=c["bots"], n_games=c["games"],
+                                 transport=c["transport"])
+    phases = r.get("phases", {})
+    passed = sum(1 for p in phases.values()
+                 if p.get("zero_loss") and not p.get("bot_errors"))
+    out = {
+        "metric": "multigame_space_kill_crosses_passed",
+        "value": float(passed),
+        "unit": "scenarios",
+        "config": dict(c),
+        "platform": "cpu",
+        "backend": "xzlist",
+        "device": "cpu",
+    }
+    out.update(r)
+    return out
+
+
+# The gate modes with a flag of their own: (flag's dest, function, metric,
+# unit), in the root bench's order.
+GATE_MODES = (
+    ("fused", lambda a: bench_fused(device=a.device),
+     "fused_entity_logic_collapse", "x"),
+    ("pinned_floor", lambda a: bench_pinned_floor(device=a.device),
+     "pinned_floor_updates_per_sec", "entity-updates/sec"),
+    ("sharded", lambda a: bench_sharded(a.sharded_backend, device=a.device),
+     "sharded_updates_per_sec", "entity-updates/sec"),
+    ("fanout_multi", lambda a: bench_fanout_multi(),
+     "fanout_multi_sync_records_per_sec", "sync-records/sec"),
+    ("fanout_massive", lambda a: bench_fanout_massive(),
+     "fanout_massive_sync_records_per_sec", "sync-records/sec"),
+    ("fanout", lambda a: bench_fanout(),
+     "fanout_sync_records_per_sec", "sync-records/sec"),
+    ("multigame_spaces", lambda a: bench_multigame_spaces(),
+     "multigame_space_kill_crosses_passed", "scenarios"),
+    ("multigame", lambda a: bench_multigame(),
+     "multigame_rebalance_entities_per_sec", "entities/sec"),
+    ("chaos", lambda a: bench_chaos(slo=_slo(a.slo_config)),
+     "chaos_scenarios_passed", "scenarios"),
+    ("trace_overhead", lambda a: bench_trace_overhead(device=a.device),
+     "trace_overhead_sync_records_per_sec", "sync-records/sec"),
+)
+
+
 def _run_bench(args) -> int:
     if args.list_scenarios:
         return list_scenarios(args.device)
@@ -1133,34 +2018,20 @@ def _run_bench(args) -> int:
             return bench_scenario(
                 args.scenario, args.scenario_engine,
                 slo=_slo(args.slo_config), device=args.device)
-    elif args.fused:
-        metric, unit = "fused_entity_logic_collapse", "x"
-
-        def run():
-            return bench_fused(device=args.device)
-    elif args.pinned_floor:
-        metric, unit = "pinned_floor_updates_per_sec", "entity-updates/sec"
-
-        def run():
-            return bench_pinned_floor(device=args.device)
-    elif args.sharded:
-        metric, unit = "sharded_updates_per_sec", "entity-updates/sec"
-
-        def run():
-            return bench_sharded(args.sharded_backend, device=args.device)
-    elif args.chaos:
-        metric, unit = "chaos_scenarios_passed", "scenarios"
-
-        def run():
-            return bench_chaos(slo=_slo(args.slo_config))
     else:
-        # The default run: the full record, then the compact headline as
-        # the last line (a tail of the output keeps the headline whole).
-        result = bench_default(device=args.device)
-        print(json.dumps(result), flush=True)
-        print(json.dumps(headline_of(result), separators=(",", ":")),
-              flush=True)
-        return 0
+        mode = next((m for m in GATE_MODES if getattr(args, m[0])), None)
+        if mode is None:
+            # The default run: the full record, then the compact headline
+            # as the last line (a tail of the output keeps it whole).
+            result = bench_default(device=args.device)
+            print(json.dumps(result), flush=True)
+            print(json.dumps(headline_of(result), separators=(",", ":")),
+                  flush=True)
+            return 0
+        _, fn, metric, unit = mode
+
+        def run():
+            return fn(args)
     try:
         result = run()
     except Exception:
@@ -1189,6 +2060,12 @@ def main(argv=None) -> int:
                     choices=("batched", "sharded"))
     ap.add_argument("--list-scenarios", action="store_true")
     ap.add_argument("--chaos", action="store_true")
+    ap.add_argument("--fanout", action="store_true")
+    ap.add_argument("--fanout-multi", action="store_true")
+    ap.add_argument("--fanout-massive", action="store_true")
+    ap.add_argument("--trace-overhead", action="store_true")
+    ap.add_argument("--multigame", action="store_true")
+    ap.add_argument("--multigame-spaces", action="store_true")
     ap.add_argument("--history-dir", metavar="DIR",
                     help="write the run's telemetry ring under DIR/bench")
     ap.add_argument("--slo-config", metavar="INI")
@@ -1198,8 +2075,12 @@ def main(argv=None) -> int:
 
     hist = None
     if args.history_dir:
+        from goworld_tpu_torch.ops import event_kernel
         from goworld_tpu_torch.telemetry import history as history_mod
 
+        # The event kernel's launches by form, as its wrapper counts them
+        # (a game exports the same gauge): the ring's frames carry them.
+        event_kernel.register_launch_gauge()
         hist = history_mod.HistoryWriter(
             os.path.join(args.history_dir, "bench"), "bench")
         history_mod.set_active_writer(hist)

@@ -136,6 +136,26 @@ class _GameInfo:
             self.proxy.send(msgtype, packet)
 
 
+class _SpaceHandoff:
+    """A whole-space handoff this dispatcher serves: from the donor's
+    SPACE_MIGRATE_PREPARE (or the bundle, where no PREPARE came here) to
+    the receiver's SPACE_MIGRATE_ACK, the donor's abort or the deadline."""
+
+    __slots__ = ("deadline", "parked", "inflight")
+
+    def __init__(self, deadline: float, parked: list) -> None:
+        self.deadline = deadline
+        self.parked = parked  # member eids whose streams are parked
+        # The SPACE_MIGRATE_DATA once written to the target's link and
+        # until the target acks it: (target game, packet, source game).
+        # The bundle is the space's last copy. A target killed as it is
+        # routed can leave it unread in a socket that outlives the process
+        # by the milliseconds the kernel takes to tear the process down;
+        # when that target is declared dead, or cold-boots under the same
+        # gameid, the kept packet bounces home.
+        self.inflight: Optional[tuple[int, Packet, int]] = None
+
+
 class _GateInfo:
     """Per-gate connection state with a reconnect-grace buffer.
 
@@ -217,11 +237,11 @@ class DispatcherService:
         # window lapses.
         self._pending_boots: list[tuple[Packet, float]] = []
         self.kvreg: dict[str, str] = {}
-        # Whole-space handoffs this dispatcher parked member
-        # streams for: spaceid → (deadline, [parked eids]). Entries clear
-        # on SPACE_MIGRATE_ACK (receiver restored), SPACE_MIGRATE_ABORT
-        # (donor unfroze in place), or the deadline sweep.
-        self._space_handoffs: dict[str, tuple[float, list]] = {}
+        # Whole-space handoffs this dispatcher parked member streams for
+        # or routed a bundle of. Entries clear on SPACE_MIGRATE_ACK
+        # (receiver restored), SPACE_MIGRATE_ABORT (donor unfroze in
+        # place), or the deadline sweep.
+        self._space_handoffs: dict[str, _SpaceHandoff] = {}
         self.deployment_ready = False
         self._boot_rr = 0
         self._lbc = LBCHeap()
@@ -737,7 +757,28 @@ class DispatcherService:
                             "state dropped", self.dispid,
                             MsgType(msgtype).name, eid, gameid)
                 gi.pending.clear()
+                self._bounce_inflight_spaces(gameid, now)
                 self._handle_game_down(gameid)
+
+    def _bounce_inflight_spaces(self, gameid: int, now: float) -> None:
+        """Every space bundle routed to ``gameid`` that it never
+        acknowledged goes home to its source game: the game died with the
+        bundle unread, or restored it and died before its ack left (then
+        the restored copy died with it). Either way the kept packet is the
+        only live copy."""
+        for spaceid, entry in self._space_handoffs.items():
+            if entry.inflight is None or entry.inflight[0] != gameid:
+                continue
+            _target, packet, source = entry.inflight
+            entry.inflight = None
+            packet.set_read_pos(0)
+            if not self._bounce_migrate_home(
+                    spaceid, packet, source, now,
+                    msgtype=MsgType.SPACE_MIGRATE_DATA):
+                gwlog.errorf(
+                    "dispatcher %d: SPACE_MIGRATE_DATA of %s routed to dead "
+                    "game %d has no live source; space state dropped",
+                    self.dispid, spaceid, gameid)
 
     def _sweep_dead_gates(self) -> None:
         """A gate whose reconnect-grace window lapsed is really dead: NOW
@@ -936,7 +977,11 @@ class DispatcherService:
                 f"{type(entity_ids).__name__}, expected list[str]")
         if not self._check_proto_version(proxy, packet, f"game {gameid}"):
             return
+        now = self._now()
         if not is_reconnect and not is_restore:
+            # Space bundles written to the dead incarnation's link were
+            # never read: bounce them home before its routes go.
+            self._bounce_inflight_spaces(gameid, now)
             # A COLD-booted game (neither a surviving process re-dialing
             # nor a freeze restore) owns no prior entities: any routing
             # entries still homed to this gameid belong to a dead
@@ -964,7 +1009,6 @@ class DispatcherService:
         # Reconnect reconciliation: reject entities homed elsewhere
         # (DispatcherService.go:376-398).
         rejected: list[str] = []
-        now = self._now()
         for eid in entity_ids:
             info = self.entities.get(eid)
             if info is not None and info.gameid not in (0, gameid):
@@ -989,6 +1033,7 @@ class DispatcherService:
         notify = Packet()
         notify.append_uint16(gameid)
         self._broadcast_games(MsgType.NOTIFY_GAME_CONNECTED, notify, except_game=gameid)
+        self._keep_buffered_spaces(gi, now)
         gi.unblock_and_flush()
         self._check_deployment_ready()
         gwlog.infof(
@@ -1346,7 +1391,7 @@ class DispatcherService:
                 continue  # moved or destroyed since the freeze snapshot
             info.block(now, consts.DISPATCHER_MIGRATE_TIMEOUT)
             parked.append(eid)
-        self._space_handoffs[spaceid] = (
+        self._space_handoffs[spaceid] = _SpaceHandoff(
             now + consts.DISPATCHER_MIGRATE_TIMEOUT, parked)
         p = Packet()
         p.append_entity_id(spaceid)
@@ -1360,7 +1405,10 @@ class DispatcherService:
         because the payload is the space's and members' last copy: route
         through blocks, grace-buffer for an unknown target's handshake,
         bounce home to the trailing source gameid when the target is
-        declared dead."""
+        declared dead. A bundle written to a live target's link stays
+        kept (``_SpaceHandoff.inflight``) until the target acknowledges
+        it, and bounces home if the target is declared dead or cold-boots
+        first."""
         spaceid = packet.read_entity_id()
         target_game = packet.read_uint16()
         packet.set_read_pos(0)
@@ -1391,6 +1439,11 @@ class DispatcherService:
         info.gameid = target_game
         self._mig_routed.inc()
         self.migrates_routed += 1
+        if gi.connected and not gi.blocked(now):  # written to the link now
+            self._keep_inflight_space(
+                spaceid, target_game, packet,
+                self._gameid_of(proxy) or self._real_migrate_source(packet),
+                now)
         gi.dispatch(MsgType.SPACE_MIGRATE_DATA, packet, now)
         self._flush_entity_pending(info)
 
@@ -1415,11 +1468,31 @@ class DispatcherService:
         packet.read_uint16()  # receiver gameid (logged at the receiver)
         self._release_space_handoff(spaceid)
 
+    def _keep_inflight_space(self, spaceid: str, target: int, packet: Packet,
+                             source: int, now: float) -> None:
+        entry = self._space_handoffs.get(spaceid)
+        if entry is None:  # no PREPARE reached this dispatcher
+            entry = self._space_handoffs[spaceid] = _SpaceHandoff(
+                now + consts.DISPATCHER_MIGRATE_TIMEOUT, [])
+        entry.inflight = (target, packet, source)
+
+    def _keep_buffered_spaces(self, gi: _GameInfo, now: float) -> None:
+        """Bundles buffered while the game was away are written to its new
+        link by the flush: keep each until the game acks it."""
+        for msgtype, packet in gi.pending:
+            if msgtype != MsgType.SPACE_MIGRATE_DATA:
+                continue
+            spaceid = packet.read_entity_id()
+            packet.set_read_pos(0)
+            self._keep_inflight_space(
+                spaceid, gi.gameid, packet,
+                self._real_migrate_source(packet), now)
+
     def _release_space_handoff(self, spaceid: str) -> bool:
         entry = self._space_handoffs.pop(spaceid, None)
         if entry is None:
             return False
-        for eid in entry[1]:
+        for eid in entry.parked:
             info = self.entities.get(eid)
             if info is not None:
                 self._flush_entity_pending(info)
@@ -1433,8 +1506,14 @@ class DispatcherService:
         if not self._space_handoffs:
             return
         now = self._now()
-        for spaceid, (deadline, _parked) in list(self._space_handoffs.items()):
-            if now >= deadline:
+        for spaceid, entry in list(self._space_handoffs.items()):
+            if now >= entry.deadline:
+                if entry.inflight is not None:
+                    gwlog.errorf(
+                        "dispatcher %d: SPACE_MIGRATE_DATA of %s routed to "
+                        "game %d was never acknowledged; its kept copy is "
+                        "dropped with the handoff", self.dispid, spaceid,
+                        entry.inflight[0])
                 self._release_space_handoff(spaceid)
                 gwlog.warnf(
                     "dispatcher %d: space %s handoff hit the dispatcher "

@@ -321,13 +321,7 @@ class GameService:
                 # versions on the CPU count none.
                 from goworld_tpu_torch.ops import event_kernel
 
-                launched = telemetry.gauge(
-                    "event_kernel_launches",
-                    "Launches of each event-kernel form in this process.",
-                    ("form",))
-                for form in event_kernel.launches:
-                    launched.labels(form).set_function(
-                        lambda f=form: event_kernel.launches[f])
+                event_kernel.register_launch_gauge()
             debug_srv = await setup_http_server(game_cfg.http_addr if game_cfg else "")
             if tcfg is not None and tcfg.history_dir:
                 # Black-box history ring (telemetry/history.py): its own

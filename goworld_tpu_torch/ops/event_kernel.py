@@ -53,6 +53,18 @@ def reset_launch_counts() -> None:  # gwlint: keep (chip_smoke.py zeroes it)
         launches[form] = 0
 
 
+def register_launch_gauge() -> None:
+    """Export ``launches`` as the gauge ``event_kernel_launches{form}``,
+    read where a scraper or a history frame samples it."""
+    from goworld_tpu_torch import telemetry
+
+    gauge = telemetry.gauge(
+        "event_kernel_launches",
+        "Launches of each event-kernel form in this process.", ("form",))
+    for form in launches:
+        gauge.labels(form).set_function(lambda f=form: launches[f])
+
+
 def words_per_row(dual: bool) -> int:
     return _W * (2 if dual else 1)
 

@@ -2,7 +2,9 @@
 
 ``python -m goworld_tpu_torch.tools.gwtop`` renders the cluster observability
 plane (the driver dispatcher's ``GET /cluster`` aggregate) as a live
-terminal view. The repo-root ``tools/`` directory keeps the offline
-scripts (tracecat, gwlint drivers); anything here must be importable
-from a deployed package.
+terminal view; ``python -m goworld_tpu_torch.tools.tracecat`` merges the
+processes' span rings (live, or a post-mortem bundle's) into one Perfetto
+trace; ``gwpost`` collects and renders post-mortem bundles and ``gwlint``
+lints the package. Anything here must be importable from a deployed
+package.
 """

@@ -32,6 +32,7 @@ import torch
 from goworld_tpu.ops import neighbor as jn
 from goworld_tpu.parallel import spatial as js
 from goworld_tpu_torch import bench as port_bench
+from goworld_tpu_torch.ops import event_kernel
 from goworld_tpu_torch.telemetry import history
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -449,7 +450,8 @@ def test_modes_without_a_card_fail_in_their_line(knobs, monkeypatch):
     carries ``error``; nothing runs on the CPU in its place."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     knobs(BENCH_MODE="aoi")
-    for argv in ([], ["--sharded"], ["--fused"], ["--pinned-floor"]):
+    for argv in ([], ["--sharded"], ["--fused"], ["--pinned-floor"],
+                 ["--trace-overhead"]):
         rc, lines = lines_of(port_bench.main, argv)
         assert rc == 0
         assert "no CUDA device" in json.loads(lines[0])["error"], argv
@@ -465,3 +467,8 @@ def test_history_dir_writes_the_bench_ring(tmp_path, knobs):
     assert torn == 0 and frames
     assert frames[-1]["process"] == "bench" and frames[-1]["final"] is True
     assert history.active_writer() is None
+    # The event kernel's launches by form, the wrapper's own counts, ride
+    # every frame.
+    launched = frames[-1]["gauges"]["event_kernel_launches"]
+    assert {labels["form"]: n for labels, n in launched} == {
+        form: float(n) for form, n in event_kernel.launches.items()}

@@ -9,8 +9,9 @@ detector, the model checker and the Chinese doc entry) must equal its
 JAX original after the package rename ``goworld_tpu`` ->
 ``goworld_tpu_torch``: the same ``ast.dump`` with
 docstrings dropped (comments are not in the AST). The hand-edited modules
-are allowed to differ only in the top-level definitions named below, each
-with its reason; everything else in them is held equal too.
+are allowed to differ only in the top-level definitions named below, or
+in the methods named ``Class.method``, each with its reason; everything
+else in them is held equal too, a class's other members one by one.
 """
 
 from __future__ import annotations
@@ -148,6 +149,26 @@ EDITED = {
     # goworld_tpu_torch directory (a path component: the JAX copy's
     # substring test would own either package's frames).
     "analysis/lockgraph.py": {"_owned", "_creation_site"},
+    # A fault fix: a space bundle routed to a target killed in the same
+    # instant could sit unread in a socket that outlived the process (a
+    # process with torch loaded takes ~20 ms to tear down) and was lost.
+    # The dispatcher keeps each routed bundle in its handoff entry
+    # (_SpaceHandoff) until the target acks it, bounces it home when the
+    # target is declared dead or cold-boots (_bounce_inflight_spaces), and
+    # logs an error when the deadline drops an unacknowledged one. The JAX
+    # package has the same race.
+    "dispatcher/service.py": {
+        "_SpaceHandoff",
+        "DispatcherService.__init__",
+        "DispatcherService._sweep_dead_frozen_games",
+        "DispatcherService._bounce_inflight_spaces",
+        "DispatcherService._handle_set_game_id",
+        "DispatcherService._handle_space_migrate_prepare",
+        "DispatcherService._handle_space_migrate_data",
+        "DispatcherService._keep_inflight_space",
+        "DispatcherService._keep_buffered_spaces",
+        "DispatcherService._release_space_handoff",
+        "DispatcherService._sweep_space_handoffs"},
 }
 # cn.py differs from its original only in its docstring (the AOI paragraph
 # names PyTorch and the CUDA kernels), which the comparison drops.
@@ -188,10 +209,31 @@ def _name(stmt: ast.stmt) -> str:
 
 
 def _by_name(tree: ast.Module) -> dict[str, list[str]]:
+    """Each top-level definition's dump by name; a class also by member
+    (``Class.member``) and by its header without the body
+    (``Class.<header>``)."""
     out: dict[str, list[str]] = {}
     for stmt in tree.body:
-        out.setdefault(_name(stmt), []).append(ast.dump(stmt))
+        name = _name(stmt)
+        out.setdefault(name, []).append(ast.dump(stmt))
+        if isinstance(stmt, ast.ClassDef):
+            for member in stmt.body:
+                out.setdefault(f"{name}.{_name(member)}", []).append(
+                    ast.dump(member))
+            header = ast.ClassDef(
+                name=stmt.name, bases=stmt.bases, keywords=stmt.keywords,
+                body=[], decorator_list=stmt.decorator_list,
+                type_params=getattr(stmt, "type_params", []))
+            out[f"{name}.<header>"] = [ast.dump(header)]
     return out
+
+
+def _allowed(name: str, allowed: set) -> bool:
+    """A name is let differ when it is listed, when its class is listed
+    whole, or when it is a class one of whose members is listed (its
+    members and header are then compared one by one)."""
+    return (name in allowed or name.split(".")[0] in allowed
+            or any(a.startswith(name + ".") for a in allowed))
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -204,7 +246,7 @@ def test_copy_equals_jax_original(rel):
     allowed = EDITED[rel]
     a, b = _by_name(want), _by_name(got)
     for name in set(a) | set(b):
-        if name in allowed:
+        if _allowed(name, allowed):
             continue
         assert a.get(name) == b.get(name), f"{rel}: {name} differs"
     # Every allowed difference is real: an entry that no longer differs

@@ -64,7 +64,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "telemetry.postmortem", "chaos", "chaos.harness",
               "chaos.multigame", "chaos.botfleet", "chaos.mg_server",
               "chaos.game_proc", "tools", "tools.gwtop", "tools.gwpost",
-              "bench"):
+              "tools.tracecat", "bench"):
         assert f"goworld_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -90,7 +90,8 @@ def test_port_sources_name_no_jax_package_import():
                 "examples/test_game/__main__.py",
                 "examples/test_game/server.py", "graft_entry.py",
                 "scenarios/runner.py", "scenarios/service_heavy.py",
-                "chaos/harness.py", "chaos/multigame.py", "bench.py"):
+                "chaos/harness.py", "chaos/multigame.py", "bench.py",
+                "tools/tracecat.py"):
         assert PACKAGE / rel in files
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):

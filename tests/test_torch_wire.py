@@ -3,11 +3,13 @@
 For messages made from a seed: the framing (the native C module and the
 pure-Python ``pyframe``), ``Packet`` payloads, the msgpack codec and the
 typed senders of ``proto.conn`` give the same bytes in both packages, and
-each package decodes the other's frames and payloads.
+each package decodes the other's frames and payloads. The recv seam of
+``proto.conn`` strips a trace trailer the same way in both packages.
 """
 
 from __future__ import annotations
 
+import asyncio
 import random
 
 import pytest
@@ -16,12 +18,18 @@ import goworld_tpu.native as jnative
 import goworld_tpu.native.pyframe as jpyframe
 import goworld_tpu.netutil.msgpacker as jmsgpacker
 import goworld_tpu.netutil.packet as jpacket
+import goworld_tpu.netutil.packet_conn as jpacket_conn
 import goworld_tpu.proto.conn as jconn
+import goworld_tpu.proto.msgtypes as jmsgtypes
+import goworld_tpu.telemetry.tracing as jtracing
 import goworld_tpu_torch.native as tnative
 import goworld_tpu_torch.native.pyframe as tpyframe
 import goworld_tpu_torch.netutil.msgpacker as tmsgpacker
 import goworld_tpu_torch.netutil.packet as tpacket
+import goworld_tpu_torch.netutil.packet_conn as tpacket_conn
 import goworld_tpu_torch.proto.conn as tconn
+import goworld_tpu_torch.proto.msgtypes as tmsgtypes
+import goworld_tpu_torch.telemetry.tracing as ttracing
 
 MAXP = 25 * 1024 * 1024
 ALPHA = "0123456789abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ-_"
@@ -226,3 +234,75 @@ def drive_senders(mod, seed: int) -> list:
 @pytest.mark.parametrize("seed", [0, 1])
 def test_typed_senders_give_equal_packets(seed):
     assert drive_senders(jconn, seed) == drive_senders(tconn, seed)
+
+
+PACKAGES = {
+    "jax": (jpacket, jpacket_conn, jconn, jmsgtypes, jtracing),
+    "port": (tpacket, tpacket_conn, tconn, tmsgtypes, ttracing),
+}
+
+
+async def recv_through_seam(receiver, sender, frames):
+    """``frames`` ([(msgtype, payload)]) sent by a server-side
+    ``PacketConnection`` of the ``sender`` package to a client
+    ``GoWorldConnection`` of the ``receiver`` package over localhost TCP:
+    what the client's recv seam returns, one (msgtype, payload, trace ids)
+    a frame. The server-side connection is closed before ``wait_closed``,
+    which otherwise waits for it forever (Python 3.12.1 on)."""
+    packet, packet_conn = PACKAGES[sender][:2]
+    conn_mod = PACKAGES[receiver][2]
+    accepted = asyncio.Queue()
+
+    async def on_conn(reader, writer):
+        await accepted.put(packet_conn.PacketConnection(reader, writer))
+
+    server = await asyncio.start_server(on_conn, "127.0.0.1", 0)
+    port = server.sockets[0].getsockname()[1]
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    client = conn_mod.GoWorldConnection(
+        PACKAGES[receiver][1].PacketConnection(reader, writer))
+    server_side = await asyncio.wait_for(accepted.get(), 5)
+    try:
+        for msgtype, payload in frames:
+            server_side.send_packet(msgtype, packet.Packet(payload))
+        server_side.flush()
+        out = []
+        for _ in frames:
+            msgtype, p = await asyncio.wait_for(client.recv(), 5)
+            trace = None if p.trace is None else (
+                p.trace.trace_id, p.trace.span_id, p.trace.flags,
+                p.trace.born is not None)
+            out.append((int(msgtype), bytes(p.payload), trace))
+        return out
+    finally:
+        server_side.close()
+        writer.close()
+        server.close()
+        await server.wait_closed()
+
+
+@pytest.mark.parametrize("sender", ["jax", "port"])
+def test_recv_seam_strips_the_trace_trailer_in_both_packages(sender):
+    """A flagged (v4) frame, the payload then the trailer, decodes to the
+    unflagged msgtype and the payload with its trace ids attached; the
+    plain frame passes untouched. The same frames, sent by either
+    package's connection, give the same results through each package's
+    seam."""
+    assert jmsgtypes.MSGTYPE_TRACE_FLAG == tmsgtypes.MSGTYPE_TRACE_FLAG
+    call = int(jmsgtypes.MsgType.CALL_ENTITY_METHOD)
+    assert call == int(tmsgtypes.MsgType.CALL_ENTITY_METHOD)
+    body = b"hello-payload"
+    trailer = jtracing.encode_trailer(jtracing.TraceContext(0xABCD, 0x1234))
+    assert trailer == ttracing.encode_trailer(
+        ttracing.TraceContext(0xABCD, 0x1234))
+    frames = [(call | jmsgtypes.MSGTYPE_TRACE_FLAG, body + trailer),
+              (call, body)]
+
+    async def both():
+        return {receiver: await recv_through_seam(receiver, sender, frames)
+                for receiver in PACKAGES}
+
+    got = asyncio.run(asyncio.wait_for(both(), 20))
+    want = [(call, body, (0xABCD, 0x1234, jtracing.FLAG_SAMPLED, True)),
+            (call, body, None)]
+    assert got["jax"] == got["port"] == want
